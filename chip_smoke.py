@@ -1,0 +1,419 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of RANGE-LSH on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # N = 2,340,373, d = 150, 1,000 queries
+
+Phases, each fatal on failure:
+
+1. Device and build: the card's name and power limit (nvidia-smi), then
+   the four CUDA kernels built from ``src/repro_torch/kernels/csrc``.
+2. Main path, at the scale of the paper's ImageNet set (synthetic
+   ``imagenet`` profile, d = 150): RANGE-LSH build (code_len 32, m 32,
+   percentile) and planner calibration, then 1,000 held-out queries in
+   batches of 64 through the fused, fused-int8, staged bucket and dense
+   arms under the planned recall-0.9 budgets. The kernels' launch
+   counters are zeroed just before and read just after; every kernel must
+   have launched. Bucket and dense candidate ids must be identical, fused
+   ids must match the staged ids tie-aware, and recall@10 against exact
+   MIPS must reach the target less 0.05.
+3. Kernels against their plain PyTorch versions on the card, at the
+   shapes the main path gave them and at the padding-probe shapes:
+   integer outputs exactly, fused-query values within atol 1e-4 and
+   rtol 1e-5 (150-term f32 dots summed in another order). Times are
+   medians of 10 CUDA-event-timed runs after warm-up. A kernel's bound
+   counts each input byte it needs once (for the fused query: each
+   probed row once, however many queries of the batch probe it) and
+   the operations this run's probe slots need.
+
+The line before the last is a JSON ``{"kernels": [...]}`` record; the last
+line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+without the repository's ``src/repro_torch`` beside it, the script exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parent / "src"
+
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
+PEAK_OPS = 67e12          # H100 SXM f32 outside the tensor cores, op/s
+ATOL, RTOL = 1e-4, 1e-5   # f32 dots of 150 terms summed in another order
+N_ITEMS = 2340373         # ImageNet, Yan et al. 2018 section 6
+DIM = 150
+NUM_QUERIES = 1000
+K = 10
+RECALL_TARGET = 0.9
+BATCH = 64
+SEED = 0
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def timed(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed
+    runs after ``warmup`` untimed ones."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def check_topk(name, ids, vals, ref_ids, ref_vals, queries, rows):
+    """Tie-aware top-k agreement: the value sequences agree within the
+    tolerance, every returned id scores its returned value (f64 dot), and
+    ids are unique per row; ids may differ only where values are tied
+    within the tolerance. Returns (max |val diff|, differing slots)."""
+    import torch
+    if ids.shape != ref_ids.shape:
+        fail(f"{name}: shape {tuple(ids.shape)} != {tuple(ref_ids.shape)}")
+    if not torch.allclose(vals, ref_vals, atol=ATOL, rtol=RTOL):
+        fail(f"{name}: values differ by "
+             f"{float((vals - ref_vals).abs().max())}")
+    for i, v in ((ids, vals), (ref_ids, ref_vals)):
+        ok = i >= 0
+        true = torch.einsum("qd,qpd->qp", queries.double(),
+                            rows[torch.where(ok, i, 0).long()].double())
+        if not torch.allclose(torch.where(ok, true, 0.0),
+                              torch.where(ok, v.double(), 0.0),
+                              atol=ATOL, rtol=RTOL):
+            fail(f"{name}: an id does not score its returned value")
+        srt = torch.sort(torch.where(ok, i, -1 - torch.arange(
+            i.shape[1], device=i.device)), dim=1).values
+        if bool((srt[:, 1:] == srt[:, :-1]).any()):
+            fail(f"{name}: an id appears twice in one row")
+    return (float((vals - ref_vals).abs().max()),
+            int((ids != ref_ids).sum()))
+
+
+def profile_batch(run, top: int = 8) -> None:
+    """Where one fused query batch spends device time: the device kernels
+    with the most time under ``torch.profiler``, and the device busy share
+    of the batch's wall time (profiler overhead included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    # kernel events only: an operator's row repeats its kernels' time
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in kernels)
+    if busy <= 0:
+        print("profile: the profiler recorded no device time "
+              "(busy share not measured)")
+        return
+    print(f"profile: fused batch of {BATCH}: wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%)")
+    for e in kernels[:top]:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+
+
+def knuth_codes(n, w, device):
+    import torch
+    i = torch.arange(n * w, dtype=torch.int64, device=device)
+    v = (i * 2654435761 + 12345) & 0xFFFFFFFF
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32
+                                                         ).reshape(n, w)
+
+
+def probe_shapes(ops, dev):
+    """The reference's padding probes, kernel against plain version."""
+    import torch
+    x = torch.ones((3, 8), device=dev)
+    A = torch.ones((8, 48), device=dev)
+    got = ops.hash_encode(x, A, impl="cuda")
+    if not torch.equal(got, ops.hash_encode(x, A, impl="ref")):
+        fail("hash_encode probe (L=48): kernel != plain")
+    if bool(((got[:, -1].long() & 0xFFFFFFFF) >> 16).any()):
+        fail("hash_encode probe: pad bits of the last word are set")
+    q, db = knuth_codes(3, 2, dev), knuth_codes(70, 2, dev)
+    if not torch.equal(ops.hamming_scan(q, db, impl="cuda"),
+                       ops.hamming_scan(q, db, impl="ref")):
+        fail("hamming_scan probe (n=70): kernel != plain")
+    sizes = torch.full((3, 4), 2, dtype=torch.int32, device=dev)
+    cum = torch.cat([torch.zeros((3, 1), dtype=torch.int32, device=dev),
+                     torch.cumsum(sizes, 1, dtype=torch.int32)], 1)
+    starts = (17 * torch.arange(12, dtype=torch.int32, device=dev)
+              ).reshape(3, 4)
+    got = ops.bucket_gather(cum, starts, 7, impl="cuda")
+    if got.shape != (3, 7) or not torch.equal(
+            got, ops.bucket_gather(cum, starts, 7, impl="ref")):
+        fail("bucket_gather probe (q=3, s=4, p=7): kernel != plain")
+    queries = torch.ones((3, 4), device=dev)
+    items = torch.arange(32, dtype=torch.float32, device=dev
+                         ).reshape(8, 4) / 32
+    items[0] = 100.0                      # the poison row, never probed
+    cum = torch.tensor([[0, 2, 4]] * 3, dtype=torch.int32, device=dev)
+    starts = torch.tensor([[2, 6], [4, 1], [6, 3]], dtype=torch.int32,
+                          device=dev)
+    pay = torch.ones((8, 4), dtype=torch.int8, device=dev)
+    sc = (2.0 ** torch.arange(8, dtype=torch.float32, device=dev)
+          )[:, None] / 127.0
+    for extra in ({}, {"payload": pay, "scale": sc}):
+        gv, gp = ops.fused_query(queries, cum, starts, items, 4, 4,
+                                 impl="cuda", **extra)
+        wv, wp = ops.fused_query(queries, cum, starts, items, 4, 4,
+                                 impl="ref", **extra)
+        if bool((gp == 0).any()):
+            fail("fused_query probe: an unprobed position surfaced")
+        check_topk("fused_query probe", gp, gv, wp, wv, queries, items)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import planner, topk
+    from repro_torch.core.engine import (QueryEngine, _directory_order,
+                                         _planned_runs, engine_for)
+    from repro_torch.core.index import IndexSpec, build
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import _build, ops
+
+    # every reference product in this script runs in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # -- 1. device and build --------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    t = time.perf_counter()
+    _build.build_all()
+    print(f"build: kernels {time.perf_counter() - t:.2f} s")
+    for name, log in _build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    # -- 2. main path ---------------------------------------------------------
+    ds = make_dataset("imagenet", SEED, n=N_ITEMS, d=DIM,
+                      num_queries=NUM_QUERIES)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    spec = IndexSpec(family="simple", code_len=32, m=32, scheme="percentile",
+                     engine="fused", recall_target=RECALL_TARGET)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    t = time.perf_counter()
+    idx = build(dataclasses.replace(spec, recall_target=None), ds.items, gen)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    t = time.perf_counter()
+    idx = idx._replace(spec=spec, calib=planner.calibrate(idx,
+                                                          generator=gen))
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t
+    print(f"build: N={N_ITEMS} d={DIM} hash_bits={idx.hash_bits} "
+          f"W={idx.codes.shape[1]} index {t_build:.3f} s, calibration "
+          f"({planner.DEFAULT_CAL_QUERIES} queries) {t_cal:.3f} s")
+    t = time.perf_counter()
+    fused = engine_for(idx, engine="fused")       # what idx.query serves
+    torch.cuda.synchronize()
+    buckets = fused.buckets
+    print(f"build: bucket store B={buckets.num_buckets} "
+          f"{time.perf_counter() - t:.3f} s")
+    plan = planner.resolve_budgets(idx.calib, RECALL_TARGET, k=K)
+    budgets = plan.budgets
+    print(f"plan: target {RECALL_TARGET} width {plan.num_probe} predicted "
+          f"{plan.predicted_recall:.4f}")
+    arms = {
+        "fused": None,
+        "fused_int8": QueryEngine(idx, engine="fused", quantized=True,
+                                  buckets=buckets),
+        "bucket": QueryEngine(idx, engine="bucket", buckets=buckets),
+        "dense": QueryEngine(idx, engine="dense", buckets=buckets),
+    }
+    ms = {a: [] for a in arms}
+    hits = {a: 0 for a in arms}
+    truth_n = 0
+    tie_diffs = 0
+    for s in range(0, NUM_QUERIES, BATCH):
+        qb = ds.queries[s:s + BATCH]
+        out = {}
+        for arm, eng in arms.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if eng is None:
+                out[arm] = idx.query(qb, k=K)     # the recall-target default
+            else:
+                out[arm] = eng.query(qb, K, budgets=budgets)
+            torch.cuda.synchronize()
+            ms[arm].append(1e3 * (time.perf_counter() - t))
+        cb = arms["bucket"].candidates(qb, budgets=budgets)
+        cd = arms["dense"].candidates(qb, budgets=budgets)
+        if not torch.equal(cb, cd):
+            fail(f"batch {s // BATCH}: bucket and dense candidate ids "
+                 f"differ")
+        fv, fi = out["fused"]
+        sv, si = out["bucket"]
+        tie_diffs += check_topk("fused vs staged", fi, fv, si, sv, qb,
+                                ds.items)[1]
+        _, truth = topk.exact_mips(qb, ds.items, K)
+        truth_n += truth.numel()
+        for arm, (_, ids) in out.items():
+            hits[arm] += int((ids[:, :, None] == truth[:, None, :])
+                             .any(1).sum())
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    print(f"launches on the main path: {launches}")
+    idle = [op for op, n in launches.items() if n == 0]
+    if idle:
+        fail(f"kernels never launched on the main path: {idle}")
+    for arm in arms:
+        rec = hits[arm] / truth_n
+        print(f"query: {arm:10s} recall@{K} {rec:.4f} median "
+              f"{statistics.median(ms[arm]):.3f} ms/batch of {BATCH} "
+              f"(first {ms[arm][0]:.3f} ms), width {plan.num_probe}")
+        if rec < RECALL_TARGET - 0.05:
+            fail(f"{arm} recall@{K} {rec:.4f} < {RECALL_TARGET - 0.05}")
+    print(f"query: fused vs staged ids differ in {tie_diffs} tied slots")
+    profile_batch(lambda: idx.query(ds.queries[:BATCH], k=K))
+
+    # -- 3. kernels against their plain versions ------------------------------
+    probe_shapes(ops, dev)
+    qb = ds.queries[:BATCH]
+    fam = idx.family
+    x = idx.items / idx.upper_eff[idx.range_id][:, None]
+    tail = torch.sqrt(torch.clamp_min(1.0 - torch.sum(x * x, -1), 0.0))
+    A, a_tail = idx.params[:-1], idx.params[-1]
+    q_codes = fam.encode_queries(idx.params, qb)
+    order = _directory_order(buckets, q_codes, fused._match_fn)
+    total = plan.num_probe                        # budgets are clipped
+    cum, starts = _planned_runs(buckets, order, budgets)
+    items_csr, _, _ = fused._fused_arrays
+    payload, scale = arms["fused_int8"]._fused_arrays[1:]
+    n, d = x.shape
+    L, W = idx.hash_bits, idx.codes.shape[1]
+    kp = max(K, min(max(4 * K, 32), total))
+    # what this batch's probes need: the runs that hold slots, the live
+    # slots, the distinct rows they touch, and the k' survivors of each
+    # phase 1 (their distinct f32 rows for the int8 rescore)
+    runs = int((cum[:, 1:] > cum[:, :-1]).sum())
+    live = (torch.arange(total, device=dev)[None] < cum[:, -1:])
+    slots = int(live.sum())
+    probed = ops.bucket_gather(cum, starts, total, impl="ref")
+    probed_rows = int(torch.unique(probed[live]).numel())
+
+    def survivors(**extra):
+        _, sp = ops.fused_query(qb, cum, starts, items_csr, total, kp,
+                                kprime=kp, impl="ref", **extra)
+        return int((sp >= 0).sum()), int(torch.unique(sp[sp >= 0]).numel())
+    surv, _ = survivors()
+    surv8, surv8_rows = survivors(payload=payload, scale=scale)
+    fused_io = 4 * BATCH * d + 8 * runs + 8 * BATCH * K
+    cases = {
+        "hash_encode": dict(
+            call=lambda impl: ops.hash_encode(x, A, tail, a_tail, impl=impl),
+            bytes=4 * (n * d + d * L + n + L + n * W),
+            ops=2 * n * d * L + 2 * n * L,
+            source="src/repro_torch/kernels/csrc/hash_encode.cu",
+            replaces="src/repro/kernels/hash_encode.py:83"),
+        "hamming_scan": dict(
+            call=lambda impl: ops.hamming_scan(q_codes, idx.codes,
+                                               impl=impl),
+            bytes=4 * (BATCH * W + n * W + BATCH * n),
+            ops=2 * BATCH * n * W,
+            source="src/repro_torch/kernels/csrc/hamming.cu",
+            replaces="src/repro/kernels/hamming.py:46"),
+        "bucket_gather": dict(
+            call=lambda impl: ops.bucket_gather(cum, starts, total,
+                                                impl=impl),
+            bytes=4 * (2 * runs + BATCH * total),
+            ops=2 * slots,
+            source="src/repro_torch/kernels/csrc/bucket_gather.cu",
+            replaces="src/repro/kernels/bucket_probe.py:124"),
+        # f32 phase 1: the payload is the rescore rows, with unit scales
+        "fused_query": dict(
+            call=lambda impl: ops.fused_query(qb, cum, starts, items_csr,
+                                              total, K, impl=impl),
+            bytes=fused_io + probed_rows * (4 * d + 4),
+            ops=2 * (slots + surv) * d,
+            source="src/repro_torch/kernels/csrc/fused_query.cu",
+            replaces="src/repro/kernels/fused_query.py:156"),
+        "fused_query_int8": dict(
+            call=lambda impl: ops.fused_query(
+                qb, cum, starts, items_csr, total, K, payload=payload,
+                scale=scale, impl=impl),
+            bytes=fused_io + probed_rows * (d + 4) + surv8_rows * 4 * d,
+            ops=2 * (slots + surv8) * d,
+            source="src/repro_torch/kernels/csrc/fused_query.cu",
+            replaces="src/repro/kernels/fused_query.py:156"),
+    }
+    print(f"kernel: main-path batch: {slots} live probe slots over "
+          f"{probed_rows} distinct rows, {runs} runs, k'={kp}")
+    rows = []
+    for name, c in cases.items():
+        got, want = c["call"]("cuda"), c["call"]("ref")
+        torch.cuda.synchronize()
+        if name.startswith("fused_query"):
+            err, swaps = check_topk(name, got[1], got[0], want[1], want[0],
+                                    qb, items_csr)
+        else:
+            if not torch.equal(got, want):
+                fail(f"{name}: kernel != plain version at the main-path "
+                     f"shape ({int((got != want).sum())} entries differ)")
+            err, swaps = 0.0, 0
+        k_ms = timed(lambda: c["call"]("cuda"))
+        p_ms = timed(lambda: c["call"]("ref"), reps=10, warmup=1)
+        t_bytes, t_ops = c["bytes"] / PEAK_BYTES, c["ops"] / PEAK_OPS
+        rows.append({
+            "name": name, "route": "cuda", "source": c["source"],
+            "replaces": c["replaces"], "launches": launches[name],
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "parity": "ok"})
+        print(f"kernel: {name} {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}), "
+              f"{c['bytes']} bytes, {c['ops']} ops, max err {err}, "
+              f"tied swaps {swaps}")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,76 @@
+"""Carry an index built by the JAX package across to the port.
+
+The caller hands over the reference ``ComposedIndex``'s fields and its
+``CalibrationTable`` as numpy arrays (``np.asarray`` of each field); this
+module imports nothing of the JAX package. Packed uint32 codes become
+int32 tensors with the same bits. The result is a
+:class:`repro_torch.core.index.ComposedIndex` whose queries run on the
+same projections, partition, codes and score table as the reference's.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.index import ComposedIndex, IndexSpec
+from repro_torch.core.planner import CalibrationTable
+
+INDEX_FIELDS = ("items", "norms", "codes", "range_id", "upper", "upper_eff",
+                "lower", "params", "table")
+SPEC_FIELDS = ("family", "code_len", "m", "scheme", "engine", "num_tables",
+               "eps", "recall_target", "charge_index_bits", "alsh_m",
+               "alsh_U", "alsh_r")
+CALIB_FIELDS = ("probe_grid", "recall_range", "recall_global", "truth_mass",
+                "range_counts", "k", "num_queries")
+
+
+def spec_from_fields(fields: Mapping, *, impl: str = "auto") -> IndexSpec:
+    """An :class:`IndexSpec` from the reference spec's fields; the
+    reference's ``impl`` ("pallas") does not carry over, ``impl`` names
+    the port's dispatch instead."""
+    return IndexSpec(impl=impl, **{f: fields[f] for f in SPEC_FIELDS
+                                   if f in fields})
+
+
+def calibration_from_fields(fields: Mapping) -> CalibrationTable:
+    """The port's :class:`CalibrationTable` from the reference's fields."""
+    return CalibrationTable(
+        np.asarray(fields["probe_grid"], np.int64),
+        np.asarray(fields["recall_range"], np.float32),
+        np.asarray(fields["recall_global"], np.float32),
+        np.asarray(fields["truth_mass"], np.float32),
+        np.asarray(fields["range_counts"], np.int64),
+        int(fields["k"]), int(fields["num_queries"]))
+
+
+def index_from_fields(arrays: Mapping, spec: Mapping, hash_bits: int, *,
+                      calib: Optional[Mapping] = None, impl: str = "auto",
+                      device=None) -> ComposedIndex:
+    """The port's :class:`ComposedIndex` from the reference index's
+    arrays (``INDEX_FIELDS``), spec fields and ``hash_bits``, on
+    ``device`` (the card unless ``device="cpu"``)."""
+    device = resolve_device(device)
+
+    def tensor(name, dtype):
+        a = np.asarray(arrays[name])
+        if name == "codes":
+            a = np.ascontiguousarray(a).view(np.int32)
+        return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+    return ComposedIndex(
+        spec=spec_from_fields(spec, impl=impl),
+        items=tensor("items", np.float32),
+        norms=tensor("norms", np.float32),
+        codes=tensor("codes", np.int32),
+        range_id=tensor("range_id", np.int32),
+        upper=tensor("upper", np.float32),
+        upper_eff=tensor("upper_eff", np.float32),
+        lower=tensor("lower", np.float32),
+        params=tensor("params", np.float32),
+        table=tensor("table", np.float32),
+        hash_bits=int(hash_bits),
+        calib=None if calib is None else calibration_from_fields(calib))

@@ -1,0 +1,407 @@
+"""Query engines: dense scan, bucket traversal and the fused kernel behind
+one front end (port of ``repro/core/engine.py``).
+
+All three realize Algorithm 2's probe order in the canonical
+``(rank, CSR position)`` order, so for one index, query batch and budget
+they return identical candidate ids:
+
+  * ``engine="dense"`` — Hamming scan over all N items, per-item rank,
+    stable sort of N ranks;
+  * ``engine="bucket"`` — scan the B-entry bucket directory, stable sort
+    of B ranks, segmented gather of the probed runs (``bucket_gather``),
+    exact re-rank;
+  * ``engine="fused"`` — the same directory walk, then one
+    ``fused_query`` launch that expands the runs, scores, keeps the top
+    k' and rescores them.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.bucket_index import BucketIndex, build_bucket_index
+from repro_torch.core.topk import rerank
+from repro_torch.kernels import ops
+
+ENGINES = ("auto", "dense", "bucket", "fused")
+
+# engine="auto": bucket traversal when the directory is meaningfully
+# smaller than the item table (the reference's measured split)
+AUTO_DENSE_RATIO = 0.75
+
+
+def select_engine(num_buckets: int, num_items: int) -> str:
+    """Resolve ``engine="auto"`` to "bucket" or "dense"."""
+    return "bucket" if num_buckets < AUTO_DENSE_RATIO * num_items else "dense"
+
+
+def _directory_order(buckets: BucketIndex, q_codes: torch.Tensor,
+                     match_fn) -> torch.Tensor:
+    """(Q, B) probe-ordered bucket indices: directory match -> per-bucket
+    rank -> stable sort (ties by CSR bucket position)."""
+    matches = match_fn(q_codes, buckets.bucket_code)            # (Q, B)
+    bucket_rank = buckets.rank[buckets.bucket_rid[None, :], matches]
+    return torch.argsort(bucket_rank, dim=-1, stable=True)
+
+
+def _probe_runs(buckets: BucketIndex, order: torch.Tensor, num_probe: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cum (Q, S+1), starts (Q, S)) runs of the first ``num_probe``
+    probed items; every bucket holds >= 1 item, so the first min(B, P)
+    buckets cover the budget."""
+    sel = order[:, :min(buckets.num_buckets, num_probe)]
+    sizes = (buckets.bucket_start[1:] - buckets.bucket_start[:-1])[sel]
+    starts = buckets.bucket_start[:-1][sel]
+    return _exclusive_cum(sizes), starts
+
+
+def _exclusive_cum(sizes: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros((sizes.shape[0], 1), dtype=torch.int32,
+                       device=sizes.device)
+    return torch.cat([zero, torch.cumsum(sizes, dim=-1,
+                                         dtype=torch.int32)], dim=-1)
+
+
+def _planned_runs(buckets: BucketIndex, order: torch.Tensor,
+                  budgets: Sequence[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cum (Q, B+1), starts (Q, B)) runs realizing per-range budgets:
+    each probe-ordered bucket takes what is left of its range's budget."""
+    sizes_o = (buckets.bucket_start[1:] - buckets.bucket_start[:-1])[order]
+    starts = buckets.bucket_start[:-1][order]
+    take = planned_take(buckets.bucket_rid[order], sizes_o, budgets)
+    return _exclusive_cum(take), starts
+
+
+def bucket_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
+                      num_probe: int, *, impl: str = "auto",
+                      match_fn) -> torch.Tensor:
+    """(Q, num_probe) candidate item ids via bucket traversal."""
+    num_probe = int(num_probe)
+    if not 0 < num_probe <= buckets.num_items:
+        raise ValueError(f"num_probe={num_probe} outside "
+                         f"(0, N={buckets.num_items}]")
+    order = _directory_order(buckets, q_codes, match_fn)
+    cum, starts = _probe_runs(buckets, order, num_probe)
+    csr_pos = ops.bucket_gather(cum, starts, num_probe, impl=impl)
+    return buckets.item_ids[csr_pos]
+
+
+def check_budgets(budgets: Sequence[int], range_counts: np.ndarray
+                  ) -> Tuple[Tuple[int, ...], int]:
+    """Validate per-range budgets against per-range item counts; returns
+    (clipped budgets, total planned width)."""
+    budgets = tuple(int(b) for b in budgets)
+    if len(budgets) != range_counts.shape[0]:
+        raise ValueError(f"{len(budgets)} budgets for "
+                         f"{range_counts.shape[0]} ranges")
+    if any(b < 0 for b in budgets):
+        raise ValueError(f"budgets must be >= 0, got {budgets}")
+    eff = tuple(min(b, int(c)) for b, c in zip(budgets, range_counts))
+    total = sum(eff)
+    if total <= 0:
+        raise ValueError("planned budgets probe zero items")
+    return eff, total
+
+
+def bucket_range_counts(buckets: BucketIndex) -> np.ndarray:
+    """(R,) per-range item counts from the bucket directory (host)."""
+    start = buckets.bucket_start.cpu().numpy()
+    return np.bincount(buckets.bucket_rid.cpu().numpy(),
+                       weights=(start[1:] - start[:-1]),
+                       minlength=buckets.rank.shape[0]).astype(np.int64)
+
+
+def range_cum_before(rid_o: torch.Tensor, sizes_o: torch.Tensor,
+                     num_ranges: int) -> torch.Tensor:
+    """(Q, B) cumulative same-range sizes before each probe-ordered slot;
+    with unit sizes, the within-range probe position."""
+    crb = torch.zeros_like(sizes_o)
+    for j in range(num_ranges):
+        mask = rid_o == j
+        sz_j = torch.where(mask, sizes_o, 0)
+        crb += torch.where(
+            mask, torch.cumsum(sz_j, dim=-1, dtype=torch.int32) - sz_j, 0)
+    return crb
+
+
+def planned_take(rid_o: torch.Tensor, sizes_o: torch.Tensor,
+                 budgets: Sequence[int]) -> torch.Tensor:
+    """(Q, B) take per probe-ordered bucket: what is left of its range's
+    budget after the same-range buckets probed before it."""
+    crb = range_cum_before(rid_o, sizes_o, len(budgets))
+    caps = torch.tensor(budgets, dtype=torch.int32,
+                        device=rid_o.device)[rid_o]
+    return torch.minimum(torch.clamp_min(caps - crb, 0), sizes_o)
+
+
+def planned_bucket_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
+                              budgets: Sequence[int], *,
+                              impl: str = "auto", match_fn,
+                              range_counts: Optional[np.ndarray] = None
+                              ) -> torch.Tensor:
+    """(Q, sum_j min(b_j, n_j)) candidates: for each range j, its first
+    ``min(b_j, n_j)`` items in canonical order, emitted in global
+    canonical order."""
+    if range_counts is None:
+        range_counts = bucket_range_counts(buckets)
+    budgets, total = check_budgets(budgets, range_counts)
+    order = _directory_order(buckets, q_codes, match_fn)
+    cum, starts = _planned_runs(buckets, order, budgets)
+    csr_pos = ops.bucket_gather(cum, starts, total, impl=impl)
+    return buckets.item_ids[csr_pos]
+
+
+def fused_bucket_query(buckets: BucketIndex, q_codes: torch.Tensor,
+                       queries: torch.Tensor, items_csr: torch.Tensor,
+                       k: int, *, num_probe: Optional[int] = None,
+                       budgets: Optional[Sequence[int]] = None,
+                       payload: Optional[torch.Tensor] = None,
+                       scale: Optional[torch.Tensor] = None,
+                       impl: str = "auto", match_fn,
+                       range_counts: Optional[np.ndarray] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Directory walk, then one ``fused_query`` launch for run expansion,
+    phase-1 scoring, survivor selection and f32 rescore. Returns (vals,
+    ids, probed width)."""
+    if (num_probe is None) == (budgets is None):
+        raise ValueError("pass exactly one of num_probe/budgets")
+    if budgets is not None:
+        if range_counts is None:
+            range_counts = bucket_range_counts(buckets)
+        budgets, total = check_budgets(budgets, range_counts)
+    else:
+        total = int(num_probe)
+        if not 0 < total <= buckets.num_items:
+            raise ValueError(f"num_probe={total} outside "
+                             f"(0, N={buckets.num_items}]")
+    order = _directory_order(buckets, q_codes, match_fn)
+    if budgets is not None:
+        cum, starts = _planned_runs(buckets, order, budgets)
+    else:
+        cum, starts = _probe_runs(buckets, order, total)
+    vals, pos = ops.fused_query(queries, cum, starts, items_csr, total, k,
+                                payload=payload, scale=scale, impl=impl)
+    return vals, buckets.item_ids[pos], total
+
+
+def quantize_payload(items_csr: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-item int8 quantization: (payload (N, d) int8, scale
+    (N, 1) f32), ``rows ~= payload * scale``, scale = max|row| / 127.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    mx = torch.amax(torch.abs(items_csr), dim=1, keepdim=True)
+    scale = torch.clamp_min(mx, torch.finfo(torch.float32).tiny) / 127.0
+    payload = torch.clamp(torch.round(items_csr / scale), -127, 127)
+    return payload.to(torch.int8), scale.to(torch.float32)
+
+
+def _keep_canonical(keep: torch.Tensor, total: int) -> torch.Tensor:
+    """(Q, total) columns of the ``total`` True entries of each row, in
+    column order (every row holds exactly ``total``)."""
+    cols = torch.nonzero(keep, as_tuple=True)[1]
+    if cols.numel() != keep.shape[0] * total:
+        raise RuntimeError("planned dense selection kept a ragged set")
+    return cols.reshape(keep.shape[0], total)
+
+
+def planned_dense_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
+                             db_codes: torch.Tensor,
+                             range_id: torch.Tensor,
+                             budgets: Sequence[int], *,
+                             impl: str = "auto", match_fn,
+                             range_counts: Optional[np.ndarray] = None
+                             ) -> torch.Tensor:
+    """Dense-scan realization of :func:`planned_bucket_candidates`'s
+    contract; identical candidate ids."""
+    if range_counts is None:
+        range_counts = np.bincount(range_id.cpu().numpy(),
+                                   minlength=buckets.rank.shape[0]
+                                   ).astype(np.int64)
+    budgets, total = check_budgets(budgets, range_counts)
+    matches = match_fn(q_codes, db_codes)                       # (Q, N)
+    item_rank = buckets.rank[range_id[None, :], matches]
+    rank_csr = item_rank[:, buckets.item_ids]
+    order = torch.argsort(rank_csr, dim=-1, stable=True)        # (Q, N)
+    rid_o = range_id[buckets.item_ids][order]
+    wpos = range_cum_before(rid_o, torch.ones_like(rid_o), len(budgets))
+    caps = torch.tensor(budgets, dtype=torch.int32, device=rid_o.device)
+    # exactly ``total`` kept per query; row-major nonzero keeps them in
+    # canonical order (the reference's stable argsort of ~keep)
+    sel = _keep_canonical(wpos < caps[rid_o], total)
+    return buckets.item_ids[torch.gather(order, 1, sel)]
+
+
+def dense_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
+                     db_codes: torch.Tensor, range_id: torch.Tensor,
+                     num_probe: int, *, impl: str = "auto",
+                     match_fn) -> torch.Tensor:
+    """(Q, num_probe) candidate ids via the dense scan, in the canonical
+    order of :func:`bucket_candidates`."""
+    matches = match_fn(q_codes, db_codes)
+    item_rank = buckets.rank[range_id[None, :], matches]
+    rank_csr = item_rank[:, buckets.item_ids]
+    order = torch.argsort(rank_csr, dim=-1, stable=True)
+    return buckets.item_ids[order[:, :int(num_probe)]]
+
+
+# bounded LRU of engines for the convenience surface (ComposedIndex.query
+# / candidates): repeat calls over one index reuse its host-built bucket
+# store. An entry holds a strong reference to its index, so an id() key
+# cannot be a stale reuse.
+_ENGINE_MEMO_CAP = 8
+_engine_memo: OrderedDict = OrderedDict()
+
+
+def engine_for(index, *, engine: str, buckets=None,
+               impl: str = "auto") -> "QueryEngine":
+    """A :class:`QueryEngine` over ``index`` on the index's device,
+    memoized when no prebuilt ``buckets`` are given."""
+    device = index.items.device
+    if buckets is not None:
+        return QueryEngine(index, engine=engine, buckets=buckets, impl=impl,
+                           device=device)
+    key = (id(index), engine, impl)
+    ent = _engine_memo.get(key)
+    if ent is None:
+        eng = QueryEngine(index, engine=engine, impl=impl, device=device)
+        _engine_memo[key] = (index, eng)
+        while len(_engine_memo) > _ENGINE_MEMO_CAP:
+            _engine_memo.popitem(last=False)
+    else:
+        _engine_memo.move_to_end(key)
+        eng = ent[1]
+    return eng
+
+
+class QueryEngine:
+    """Batched candidate generation + exact re-rank over one index.
+
+    Args:
+      index:     a :class:`~repro_torch.core.index.ComposedIndex`.
+      engine:    "dense" | "bucket" | "fused" | "auto".
+      buckets:   optional prebuilt BucketIndex (else built here, a host
+                 O(N log N) step: reuse the engine across batches).
+      impl:      kernel dispatch ("auto" | "cuda" | "ref").
+      quantized: fused engine only — phase 1 scores the int8 payload.
+      device:    the device the engine runs on; the card unless
+                 ``device="cpu"``. The index must live there.
+    """
+
+    def __init__(self, index, *, engine: str = "auto",
+                 buckets: Optional[BucketIndex] = None, impl: str = "auto",
+                 quantized: bool = False, device=None):
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine: {engine!r}")
+        if quantized and engine != "fused":
+            raise ValueError("quantized phase-1 scoring is a fused-engine "
+                             "arm; pass engine=\"fused\"")
+        device = resolve_device(device)
+        if index.items.device.type != device.type:
+            raise ValueError(f"the index lives on {index.items.device}, "
+                             f"the engine was asked for {device}")
+        if buckets is None:
+            buckets = build_bucket_index(index)
+        if engine == "auto":
+            engine = select_engine(buckets.num_buckets, buckets.num_items)
+        self.index = index
+        self.engine = engine
+        self.buckets = buckets
+        self.impl = impl
+        self.quantized = quantized
+        self._range_counts_cache = None
+        self._fused_cache = None
+
+    @property
+    def _fused_arrays(self):
+        """(items_csr, payload, scale): item rows in CSR order, made once
+        per engine, plus the int8 payload and scales when quantized."""
+        if self._fused_cache is None:
+            items_csr = self.index.items.to(torch.float32)[
+                self.buckets.item_ids]
+            payload = scale = None
+            if self.quantized:
+                payload, scale = quantize_payload(items_csr)
+            self._fused_cache = (items_csr, payload, scale)
+        return self._fused_cache
+
+    @property
+    def _range_counts(self) -> np.ndarray:
+        if self._range_counts_cache is None:
+            self._range_counts_cache = bucket_range_counts(self.buckets)
+        return self._range_counts_cache
+
+    def _match_fn(self, q_codes, codes):
+        idx = self.index
+        return idx.family.match_counts(idx.params, q_codes, codes,
+                                       idx.hash_bits, impl=self.impl)
+
+    def _encode(self, queries: torch.Tensor) -> torch.Tensor:
+        return self.index.family.encode_queries(self.index.params, queries,
+                                                impl=self.impl)
+
+    def candidates(self, queries: torch.Tensor,
+                   num_probe: Optional[int] = None, *,
+                   budgets: Optional[Sequence[int]] = None
+                   ) -> torch.Tensor:
+        """(Q, P) item ids in canonical probe order: the global prefix of
+        ``num_probe``, or the per-range prefixes of ``budgets``."""
+        if (num_probe is None) == (budgets is None):
+            raise ValueError("pass exactly one of num_probe/budgets")
+        q_codes = self._encode(queries)
+        if budgets is not None:
+            if self.engine in ("bucket", "fused"):
+                return planned_bucket_candidates(
+                    self.buckets, q_codes, budgets, impl=self.impl,
+                    match_fn=self._match_fn,
+                    range_counts=self._range_counts)
+            return planned_dense_candidates(
+                self.buckets, q_codes, self.index.codes,
+                self.index.range_id, budgets, impl=self.impl,
+                match_fn=self._match_fn, range_counts=self._range_counts)
+        num_probe = int(num_probe)
+        if not 0 < num_probe <= self.buckets.num_items:
+            raise ValueError(f"num_probe={num_probe} outside "
+                             f"(0, N={self.buckets.num_items}]")
+        if self.engine in ("bucket", "fused"):
+            return bucket_candidates(self.buckets, q_codes, num_probe,
+                                     impl=self.impl, match_fn=self._match_fn)
+        return dense_candidates(self.buckets, q_codes, self.index.codes,
+                                self.index.range_id, num_probe,
+                                impl=self.impl, match_fn=self._match_fn)
+
+    def query(self, queries: torch.Tensor, k: int,
+              num_probe: Optional[int] = None, *,
+              recall_target: Optional[float] = None,
+              budgets: Optional[Sequence[int]] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Algorithm 2 end to end: probe, exact re-rank, (vals, ids) (Q,
+        k). Exactly one of ``num_probe``, ``budgets`` or ``recall_target``
+        (resolved through the index's calibration table)."""
+        if recall_target is not None:
+            if num_probe is not None or budgets is not None:
+                raise ValueError(
+                    "pass one of num_probe/budgets/recall_target")
+            from repro_torch.core.planner import resolve_budgets
+            budgets = resolve_budgets(self.index.calib, recall_target,
+                                      k=k).budgets
+        if self.engine == "fused":
+            if (num_probe is None) == (budgets is None):
+                raise ValueError("pass exactly one of num_probe/budgets")
+            items_csr, payload, scale = self._fused_arrays
+            vals, ids, _ = fused_bucket_query(
+                self.buckets, self._encode(queries), queries, items_csr,
+                int(k), num_probe=num_probe, budgets=budgets,
+                payload=payload, scale=scale, impl=self.impl,
+                match_fn=self._match_fn, range_counts=self._range_counts)
+            return vals, ids
+        cand = self.candidates(queries, num_probe, budgets=budgets)
+        if not 0 < int(k) <= cand.shape[1]:
+            raise ValueError(f"k={k} outside (0, probed width "
+                             f"{cand.shape[1]}]")
+        return rerank(queries, self.index.items, cand, int(k))

@@ -1,0 +1,53 @@
+"""Cross-range probing order, the paper's eq. 12 (port of
+``repro/core/probe.py``).
+
+With ``l`` of ``L`` bits matching in range ``j``,
+``s_hat = U_j * cos(pi * (1 - eps) * (1 - l/L))``; the ``eps`` slack keeps
+a wide range with an unlucky ``l < L/2`` from sinking to the very end of
+the probe order (§3.3).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+DEFAULT_EPS = 0.06
+
+
+def similarity_estimate(U_j: torch.Tensor, matches: torch.Tensor,
+                        code_len: int, eps: float = DEFAULT_EPS
+                        ) -> torch.Tensor:
+    """eq. (12): ``s_hat = U_j cos[pi (1-eps) (1 - l/L)]`` (broadcasting)."""
+    frac = 1.0 - matches.to(torch.float32) / float(code_len)
+    return U_j * torch.cos(math.pi * (1.0 - eps) * frac)
+
+
+class ProbeTable(NamedTuple):
+    """All ``(j, l)`` pairs in descending eq.-12 order.
+
+    Attributes:
+      range_idx: (m*(L+1),) int32 — sub-dataset j of each entry.
+      match_cnt: (m*(L+1),) int32 — match count l of each entry.
+      score:     (m*(L+1),) f32   — eq. 12 value (descending).
+    """
+
+    range_idx: torch.Tensor
+    match_cnt: torch.Tensor
+    score: torch.Tensor
+
+
+def probe_table(upper: torch.Tensor, code_len: int,
+                eps: float = DEFAULT_EPS) -> ProbeTable:
+    """The paper's sorted ``(U_j, l)`` structure, stable on ties."""
+    m = upper.shape[0]
+    ls = torch.arange(code_len + 1, dtype=torch.int32, device=upper.device)
+    flat = similarity_estimate(upper[:, None], ls[None, :], code_len,
+                               eps).reshape(-1)
+    order = torch.argsort(-flat, stable=True)
+    j_idx = torch.arange(m, dtype=torch.int32,
+                         device=upper.device).repeat_interleave(code_len + 1)
+    l_idx = ls.repeat(m)
+    return ProbeTable(j_idx[order], l_idx[order], flat[order])

@@ -1,0 +1,231 @@
+"""Entry points of the hand-written CUDA kernels (port of
+``repro/kernels/ops.py``).
+
+Each wrapper validates its inputs as the reference does (same
+``ValueError``s), then dispatches on ``impl``:
+
+  * ``"auto"`` — the plain PyTorch version (kernels/ref.py) when every
+    input is on the CPU, else the CUDA kernel (so inputs split across
+    the CPU and the card raise as under ``"cuda"``);
+  * ``"cuda"`` — the CUDA kernel; CPU tensors raise ``ValueError``;
+  * ``"ref"``  — the plain version on any device (tests and the
+    kernel-vs-plain comparison of ``chip_smoke.py``).
+
+A wrapper that launches its kernel adds one to ``launch_counts[kernel]``
+(the fused query's int8 build counts as ``fused_query_int8``) and raises ``RuntimeError`` when the launch is refused; nothing falls back to
+the plain version on a CUDA tensor. Outputs are allocated here and the
+kernels run on the current stream.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+IMPLS = ("auto", "cuda", "ref")
+OPS = ("hash_encode", "hamming_scan", "bucket_gather", "fused_query")
+KERNELS = OPS + ("fused_query_int8",)
+
+# per-kernel launches since the last reset (plain-version calls never
+# count)
+launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_SMEM_LIMIT = 232448          # dynamic shared memory a Hopper block may use
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        launch_counts[name] = 0
+
+
+def _resolve(impl: str, op: str, *tensors: torch.Tensor) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"{op}: unknown impl {impl!r}; expected one of "
+                         f"{IMPLS}")
+    on_cuda = [t.is_cuda for t in tensors]
+    if impl == "auto":
+        impl = "cuda" if any(on_cuda) else "ref"
+    if impl == "cuda":
+        if not all(on_cuda):
+            raise ValueError(f"{op}: impl='cuda' needs every input on a "
+                             f"CUDA device, got "
+                             f"{[str(t.device) for t in tensors]}")
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError(f"{op}: inputs span several devices")
+    return impl
+
+
+def _require_nonempty(op: str, **dims: int) -> None:
+    """Every listed dimension must be >= 1 (the reference's typed
+    degenerate-shape guard)."""
+    zero = [f"{k}={v}" for k, v in dims.items() if v <= 0]
+    if zero:
+        raise ValueError(
+            f"{op}: zero-size input dimension(s) {', '.join(zero)} — "
+            f"every listed dimension must be >= 1")
+
+
+def _require(op: str, t: torch.Tensor, name: str, dtype) -> torch.Tensor:
+    if t.dtype != dtype:
+        raise ValueError(f"{op}: {name} must be {dtype}, got {t.dtype}")
+    return t.contiguous()
+
+
+def _launch(kernel: str, lib: str, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _build.function(lib)(*args, stream)
+    if err:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
+    launch_counts[kernel] += 1
+
+
+def hash_encode(x: torch.Tensor, A: torch.Tensor,
+                tail: Optional[torch.Tensor] = None,
+                a_tail: Optional[torch.Tensor] = None, *,
+                impl: str = "auto") -> torch.Tensor:
+    """Sign-projection encode to packed codes.
+
+    x: (N, d) f32; A: (d, L) f32; optional SIMPLE-LSH fold: tail (N,),
+    a_tail (L,). Returns (N, ceil(L/32)) int32 (the uint32 bits)."""
+    N, d = x.shape
+    L = A.shape[1]
+    _require_nonempty("hash_encode", N=N, d=d, L=L)
+    if tail is None:
+        tail = torch.zeros((N,), dtype=x.dtype, device=x.device)
+        a_tail = torch.zeros((L,), dtype=x.dtype, device=x.device)
+    impl = _resolve(impl, "hash_encode", x, A, tail, a_tail)
+    if impl == "ref":
+        return _ref.hash_encode_ref(x, A, tail, a_tail)
+    if 8 * d * 4 > _SMEM_LIMIT:
+        raise ValueError(f"hash_encode: d={d} rows do not fit the "
+                         f"kernel's shared-memory staging")
+    args = [_require("hash_encode", t, n, torch.float32)
+            for t, n in ((x, "x"), (A, "A"), (tail, "tail"),
+                         (a_tail, "a_tail"))]
+    W = (L + 31) // 32
+    out = torch.empty((N, W), dtype=torch.int32, device=x.device)
+    _launch("hash_encode", "hash_encode", *(a.data_ptr() for a in args),
+            out.data_ptr(), N, d, L, W)
+    return out
+
+
+def hamming_scan(q_codes: torch.Tensor, db_codes: torch.Tensor, *,
+                 impl: str = "auto") -> torch.Tensor:
+    """All-pairs Hamming distances (Q, W) x (N, W) -> (Q, N) int32."""
+    _require_nonempty("hamming_scan", Q=q_codes.shape[0],
+                      N=db_codes.shape[0], W=q_codes.shape[1])
+    if q_codes.shape[1] != db_codes.shape[1]:
+        raise ValueError(f"hamming_scan: query codes have "
+                         f"{q_codes.shape[1]} words, item codes "
+                         f"{db_codes.shape[1]}")
+    impl = _resolve(impl, "hamming_scan", q_codes, db_codes)
+    if impl == "ref":
+        return _ref.hamming_ref(q_codes, db_codes)
+    q = _require("hamming_scan", q_codes, "q_codes", torch.int32)
+    db = _require("hamming_scan", db_codes, "db_codes", torch.int32)
+    Q, W = q.shape
+    N = db.shape[0]
+    if 64 * W * 4 > _SMEM_LIMIT:
+        raise ValueError(f"hamming_scan: W={W} words do not fit the "
+                         f"kernel's shared-memory query tile")
+    out = torch.empty((Q, N), dtype=torch.int32, device=q.device)
+    _launch("hamming_scan", "hamming", q.data_ptr(), db.data_ptr(),
+            out.data_ptr(), Q, N, W)
+    return out
+
+
+def bucket_gather(cum: torch.Tensor, starts: torch.Tensor, num_probe: int,
+                  *, impl: str = "auto") -> torch.Tensor:
+    """Segmented candidate gather: CSR positions (Q, num_probe) of the
+    first ``num_probe`` probed items, given probe-ordered runs as
+    (cum (Q, S+1), starts (Q, S)) int32 arrays."""
+    num_probe = int(num_probe)
+    _require_nonempty("bucket_gather", Q=cum.shape[0],
+                      S=cum.shape[1] - 1, num_probe=num_probe)
+    if starts.shape != (cum.shape[0], cum.shape[1] - 1):
+        raise ValueError(f"bucket_gather: starts {tuple(starts.shape)} "
+                         f"must be (Q, S) for cum {tuple(cum.shape)}")
+    impl = _resolve(impl, "bucket_gather", cum, starts)
+    if impl == "ref":
+        return _ref.bucket_gather_ref(cum, starts, num_probe)
+    cum = _require("bucket_gather", cum, "cum", torch.int32)
+    starts = _require("bucket_gather", starts, "starts", torch.int32)
+    Q, S = starts.shape
+    out = torch.empty((Q, num_probe), dtype=torch.int32, device=cum.device)
+    _launch("bucket_gather", "bucket_gather", cum.data_ptr(),
+            starts.data_ptr(), out.data_ptr(), Q, S, num_probe)
+    return out
+
+
+def fused_query(queries: torch.Tensor, cum: torch.Tensor,
+                starts: torch.Tensor, items: torch.Tensor, total: int,
+                k: int, *, kprime: Optional[int] = None,
+                payload: Optional[torch.Tensor] = None,
+                scale: Optional[torch.Tensor] = None,
+                impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused single-pass planned query: vals (Q, k) f32 and CSR positions
+    (Q, k) int32.
+
+    ``cum`` (Q, S+1) / ``starts`` (Q, S): probe-ordered take runs whose
+    per-query sizes sum to the planned width ``total``. ``items`` (N, d):
+    f32 rows in CSR order (the rescore rows). Optional ``payload`` (N, d)
+    int8 + ``scale`` (N, 1) f32 select the quantized phase 1; by default
+    phase 1 scores the f32 rows with unit scales. ``kprime`` is the
+    phase-1 survivor width (>= k; default ``max(k, min(max(4k, 32),
+    total))``)."""
+    Q, d = queries.shape
+    S = cum.shape[1] - 1
+    N = items.shape[0]
+    total = int(total)
+    k = int(k)
+    _require_nonempty("fused_query", Q=Q, d=d, S=S, N=N, k=k, total=total)
+    if k > total:
+        raise ValueError(f"k={k} must not exceed the planned probe "
+                         f"width total={total}")
+    if kprime is None:
+        kprime = max(k, min(max(4 * k, 32), total))
+    kprime = int(kprime)
+    if kprime < k:
+        raise ValueError(f"kprime={kprime} must be >= k={k}")
+    if (payload is None) != (scale is None):
+        raise ValueError("fused_query: pass payload and scale together "
+                         "(the per-item dequant scales)")
+    extra = () if payload is None else (payload, scale)
+    impl = _resolve(impl, "fused_query", queries, cum, starts, items, *extra)
+    if impl == "ref":
+        return _ref.fused_query_ref(queries, cum, starts, items, total, k,
+                                    kprime=kprime, payload=payload,
+                                    scale=scale)
+    queries = _require("fused_query", queries, "queries", torch.float32)
+    cum = _require("fused_query", cum, "cum", torch.int32)
+    starts = _require("fused_query", starts, "starts", torch.int32)
+    items = _require("fused_query", items, "items", torch.float32)
+    if payload is None:
+        payload = items
+        scale = torch.ones((N, 1), dtype=torch.float32, device=items.device)
+    if payload.shape != (N, d) or tuple(scale.shape) != (N, 1):
+        raise ValueError(f"fused_query: payload {tuple(payload.shape)} and "
+                         f"scale {tuple(scale.shape)} must be ({N}, {d}) "
+                         f"and ({N}, 1)")
+    if payload.dtype not in (torch.int8, torch.float32):
+        raise ValueError(f"fused_query: payload must be int8 or float32, "
+                         f"got {payload.dtype}")
+    payload = payload.contiguous()
+    scale = _require("fused_query", scale, "scale", torch.float32)
+    if 4 * (d + 5 * 512 + 6 * kprime) > _SMEM_LIMIT:
+        raise ValueError(f"fused_query: d={d}, kprime={kprime} do not fit "
+                         f"the kernel's shared-memory survivor buffer")
+    vals = torch.empty((Q, kprime), dtype=torch.float32,
+                       device=queries.device)
+    pos = torch.empty((Q, kprime), dtype=torch.int32, device=queries.device)
+    int8 = payload.dtype == torch.int8
+    _launch("fused_query_int8" if int8 else "fused_query", "fused_query",
+            queries.data_ptr(), cum.data_ptr(), starts.data_ptr(),
+            payload.data_ptr(), int(int8), scale.data_ptr(),
+            items.data_ptr(), vals.data_ptr(), pos.data_ptr(), Q, S, d,
+            total, kprime)
+    return vals[:, :k], pos[:, :k]

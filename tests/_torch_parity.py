@@ -1,0 +1,88 @@
+"""Shared comparisons of the PyTorch port against the JAX reference.
+
+Inputs are numpy arrays made from a seed; each side gets its own copy.
+Packed codes cross as the int32 view of the reference's uint32 words.
+"""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# f32 dots of up to a few hundred terms, summed in another order by XLA
+# and by torch: a few ulps of the largest partial sum
+ATOL, RTOL = 1e-4, 1e-5
+
+# a code bit may differ only where the reference projection is this close
+# to zero relative to the projected row's norm (summation-order noise)
+FLIP_REL = 1e-5
+
+
+def u32_to_i32(codes) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(codes, np.uint32)).view(np.int32)
+
+
+def t(a, dtype=None) -> torch.Tensor:
+    """A CPU tensor holding a copy of numpy/JAX array ``a``."""
+    return torch.as_tensor(np.array(np.asarray(a), dtype=dtype))
+
+
+def assert_codes_match(port_codes, ref_codes, proj, row_norm) -> int:
+    """Packed codes equal bit for bit, except bits whose reference
+    projection lies within FLIP_REL * ||row|| of zero. Returns the number
+    of such flipped bits."""
+    got = np.asarray(port_codes).view(np.uint32)
+    want = np.asarray(ref_codes, np.uint32)
+    assert got.shape == want.shape
+    L = proj.shape[1]
+    shifts = np.arange(32, dtype=np.uint32)
+    diff = ((got ^ want)[..., None] >> shifts) & 1
+    diff = diff.reshape(got.shape[0], -1)[:, :L].astype(bool)
+    near = np.abs(proj) < FLIP_REL * np.asarray(row_norm)[:, None]
+    assert not (diff & ~near).any(), (
+        f"{int((diff & ~near).sum())} code bits differ away from zero")
+    return int(diff.sum())
+
+
+def assert_topk_tie_aware(ids, vals, ref_ids, ref_vals, *, atol=ATOL,
+                          rtol=RTOL) -> None:
+    """Top-k results agree: values within tolerance slot by slot, and an
+    id may differ from the reference's only where the reference holds the
+    same id at a value within tolerance (a reordered tie) or the id's
+    value ties the reference's last value (a swap at the cut)."""
+    ids, ref_ids = np.asarray(ids), np.asarray(ref_ids)
+    vals, ref_vals = np.asarray(vals), np.asarray(ref_vals)
+    assert ids.shape == ref_ids.shape
+    np.testing.assert_allclose(vals, ref_vals, atol=atol, rtol=rtol)
+    for r, c in zip(*np.nonzero(ids != ref_ids)):
+        tol = atol + rtol * abs(ref_vals[r, c])
+        at = np.flatnonzero(ref_ids[r] == ids[r, c])
+        if at.size:
+            assert abs(ref_vals[r, at[0]] - vals[r, c]) <= tol, (r, c)
+        else:
+            assert abs(vals[r, c] - ref_vals[r, -1]) <= tol, (r, c)
+
+
+def make_runs(rng, q, s, n):
+    """Random probe-ordered CSR runs: (cum (q, s+1), starts (q, s)) int32
+    with starts inside [0, n), and ``total``, the smallest per-query take,
+    so every slot below it is a real candidate."""
+    sizes = rng.integers(0, 9, size=(q, s)).astype(np.int32)
+    starts = rng.integers(0, n - 8, size=(q, s)).astype(np.int32)
+    cum = np.concatenate([np.zeros((q, 1), np.int32),
+                          np.cumsum(sizes, 1, dtype=np.int32)], 1)
+    return cum, starts, int(cum[:, -1].min())
+
+
+def imports_of(path: Path) -> set:
+    """Top-level module names a Python file imports."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names

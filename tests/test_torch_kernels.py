@@ -1,0 +1,265 @@
+"""The port's kernel wrappers and plain versions against the JAX ops.
+
+Same numpy inputs through ``repro.kernels.ops`` (its jnp oracles, and
+its Pallas kernels in interpret mode at the padding-probe sizes) and
+through ``repro_torch.kernels.ops`` with ``impl="ref"`` on CPU tensors.
+Integer outputs must be equal; scores within ATOL/RTOL (f32 dots summed
+in another order); code bits may differ only where the projection is
+within FLIP_REL of zero. The CUDA kernels are held against the plain
+versions on the card by ``chip_smoke.py`` and by
+``tests/test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (assert_codes_match, assert_topk_tie_aware,
+                           make_runs, t, u32_to_i32)
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops, ref
+
+
+def _codes(rng, n, w):
+    return rng.integers(0, 2 ** 32, size=(n, w), dtype=np.uint64
+                        ).astype(np.uint32)
+
+
+# -- shared helpers -----------------------------------------------------------
+
+
+def test_popcount32_counts_every_bit_pattern():
+    rng = np.random.default_rng(0)
+    words = np.concatenate([_codes(rng, 500, 1).ravel(),
+                            np.asarray([0, 1, 2 ** 31, 2 ** 32 - 1],
+                                       np.uint32)])
+    want = np.asarray([bin(int(w)).count("1") for w in words])
+    got = ref.popcount32(t(u32_to_i32(words)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_stable_topk_breaks_ties_like_lax_top_k(k):
+    rng = np.random.default_rng(1)
+    x = rng.integers(-3, 4, size=(6, 40)).astype(np.float32)   # many ties
+    x[0, :] = -np.inf
+    jv, ji = jax.lax.top_k(jnp.asarray(x), k)
+    tv, ti = ref.stable_topk(t(x), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+# -- hash_encode --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("L", [27, 32, 48, 64])
+@pytest.mark.parametrize("folded", [True, False])
+def test_hash_encode_matches_reference(L, folded):
+    rng = np.random.default_rng(L)
+    n, d = 400, 24
+    x = rng.standard_normal((n, d)).astype(np.float32) / 8
+    A = rng.standard_normal((d, L)).astype(np.float32)
+    tail = np.sqrt(np.maximum(0.0, 1 - (x * x).sum(1))).astype(np.float32)
+    a_tail = rng.standard_normal(L).astype(np.float32)
+    extra = (tail, a_tail) if folded else (None, None)
+    want = jops.hash_encode(jnp.asarray(x), jnp.asarray(A),
+                            *[None if e is None else jnp.asarray(e)
+                              for e in extra], impl="ref")
+    got = ops.hash_encode(t(x), t(A), *[None if e is None else t(e)
+                                         for e in extra], impl="ref")
+    proj = x.astype(np.float64) @ A
+    norm = np.linalg.norm(x.astype(np.float64), axis=1)
+    if folded:
+        proj += tail[:, None].astype(np.float64) * a_tail
+        norm = np.sqrt(norm ** 2 + tail.astype(np.float64) ** 2)
+    flips = assert_codes_match(got.numpy(), want, proj, norm)
+    assert flips <= n * L // 1000         # reported: near-zero ties only
+
+
+def test_hash_encode_pad_bits_probe_matches_pallas():
+    """K4 probe: every projection positive, L=48 leaves 16 pad bits that
+    must stay 0."""
+    x, A = np.ones((3, 8), np.float32), np.ones((8, 48), np.float32)
+    want = jops.hash_encode(jnp.asarray(x), jnp.asarray(A), impl="pallas")
+    got = ops.hash_encode(t(x), t(A), impl="ref").numpy()
+    np.testing.assert_array_equal(got, u32_to_i32(want))
+    assert not (got[:, -1].view(np.uint32) >> 16).any()
+
+
+# -- hamming_scan -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("w", [1, 2, 3])
+def test_hamming_scan_matches_reference(w):
+    rng = np.random.default_rng(10 + w)
+    q, db = _codes(rng, 17, w), _codes(rng, 300, w)
+    q[0] = 2 ** 31                        # top bit set, negative as int32
+    want = jops.hamming_scan(jnp.asarray(q), jnp.asarray(db), impl="ref")
+    got = ops.hamming_scan(t(u32_to_i32(q)), t(u32_to_i32(db)), impl="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_hamming_scan_probe_below_tile_matches_pallas():
+    q, db = jops._codes(3, 2), jops._codes(70, 2)
+    want = jops.hamming_scan(q, db, impl="pallas")
+    got = ops.hamming_scan(t(u32_to_i32(q)), t(u32_to_i32(db)), impl="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- bucket_gather ----------------------------------------------------------
+
+
+def test_bucket_gather_matches_reference():
+    rng = np.random.default_rng(20)
+    cum, starts, total = make_runs(rng, 12, 30, 1000)
+    want = jops.bucket_gather(jnp.asarray(cum), jnp.asarray(starts), total,
+                              impl="ref")
+    got = ops.bucket_gather(t(cum), t(starts), total, impl="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_bucket_gather_probe_matches_pallas():
+    q, s, p = 3, 4, 7
+    cum = np.concatenate([np.zeros((q, 1), np.int32),
+                          np.cumsum(np.full((q, s), 2, np.int32), 1)], 1)
+    starts = (17 * np.arange(q * s, dtype=np.int32)).reshape(q, s)
+    want = jops.bucket_gather(jnp.asarray(cum), jnp.asarray(starts), p,
+                              impl="pallas")
+    got = ops.bucket_gather(t(cum), t(starts), p, impl="ref")
+    assert got.shape == (q, p)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- fused_query --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_fused_query_matches_reference(quantized):
+    # one seed for both arms: shared shapes, so the reference compiles less
+    rng = np.random.default_rng(30)
+    n, d, q, k = 600, 16, 9, 5
+    items = (rng.standard_normal((n, d))
+             * np.exp(rng.standard_normal((n, 1)))).astype(np.float32)
+    queries = rng.standard_normal((q, d)).astype(np.float32)
+    cum, starts, total = make_runs(rng, q, 24, n)
+    kw_j, kw_t = {}, {}
+    if quantized:
+        pay, sc = _jax_quantize(items)
+        kw_j = {"payload": jnp.asarray(pay), "scale": jnp.asarray(sc)}
+        kw_t = {"payload": t(pay), "scale": t(sc)}
+    wv, wp = jops.fused_query(jnp.asarray(queries), jnp.asarray(cum),
+                              jnp.asarray(starts), jnp.asarray(items),
+                              total, k, impl="ref", **kw_j)
+    gv, gp = ops.fused_query(t(queries), t(cum), t(starts), t(items), total,
+                             k, impl="ref", **kw_t)
+    assert_topk_tie_aware(gp.numpy(), gv.numpy(), wp, wv)
+
+
+def _jax_quantize(items):
+    from repro.core.engine import quantize_payload
+    pay, sc = quantize_payload(jnp.asarray(items))
+    return np.asarray(pay), np.asarray(sc)
+
+
+def test_fused_query_poison_and_int8_probes_match_pallas():
+    """K4 probes: an unprobed poison row 0 must never surface; per-item
+    scales 2^i/127 must ride the gather in the int8 arm."""
+    q, n, d, k = 3, 8, 4, 4
+    queries = np.ones((q, d), np.float32)
+    items = (np.arange(n * d, dtype=np.float32) / (n * d)).reshape(n, d)
+    items[0] = 100.0
+    cum = np.tile(np.asarray([[0, 2, 4]], np.int32), (q, 1))
+    starts = np.asarray([[2, 6], [4, 1], [6, 3]], np.int32)
+    pay = np.ones((n, d), np.int8)
+    sc = (2.0 ** np.arange(n, dtype=np.float32))[:, None] / 127.0
+    for kw in ({}, {"payload": pay, "scale": sc}):
+        wv, wp = jops.fused_query(
+            jnp.asarray(queries), jnp.asarray(cum), jnp.asarray(starts),
+            jnp.asarray(items), 4, k, impl="pallas",
+            **{a: jnp.asarray(b) for a, b in kw.items()})
+        gv, gp = ops.fused_query(t(queries), t(cum), t(starts), t(items), 4,
+                                 k, impl="ref",
+                                 **{a: t(b) for a, b in kw.items()})
+        assert not (gp.numpy() == 0).any()
+        np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-4,
+                                   rtol=1e-5)
+
+
+# -- validation and dispatch ------------------------------------------------
+
+
+def _zero_size_calls():
+    f, i = torch.float32, torch.int32
+    return {
+        "hash_encode": lambda: ops.hash_encode(torch.zeros((0, 4)),
+                                               torch.zeros((4, 8))),
+        "hamming_scan": lambda: ops.hamming_scan(
+            torch.zeros((2, 0), dtype=i), torch.zeros((5, 0), dtype=i)),
+        "bucket_gather": lambda: ops.bucket_gather(
+            torch.zeros((2, 1), dtype=i), torch.zeros((2, 0), dtype=i), 3),
+        "fused_query": lambda: ops.fused_query(
+            torch.zeros((0, 4), dtype=f), torch.zeros((0, 3), dtype=i),
+            torch.zeros((0, 2), dtype=i), torch.zeros((8, 4)), 4, 2),
+    }
+
+
+@pytest.mark.parametrize("op", ops.OPS)
+def test_zero_size_inputs_raise_value_error(op):
+    with pytest.raises(ValueError, match="zero-size"):
+        _zero_size_calls()[op]()
+
+
+def _fused_args():
+    queries = torch.ones((2, 4))
+    cum = torch.tensor([[0, 2, 4]] * 2, dtype=torch.int32)
+    starts = torch.tensor([[0, 4]] * 2, dtype=torch.int32)
+    return queries, cum, starts, torch.ones((8, 4))
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"total": 4, "k": 5}, "must not exceed the planned probe width"),
+    ({"total": 4, "k": 3, "kprime": 2}, "must be >= k"),
+    ({"total": 4, "k": 2, "payload": torch.ones((8, 4), dtype=torch.int8)},
+     "pass payload and scale together"),
+    ({"total": 4, "k": 2, "scale": torch.ones((8, 1))},
+     "pass payload and scale together"),
+])
+def test_fused_query_errors_match_reference(kwargs, match):
+    args = _fused_args()
+    with pytest.raises(ValueError, match=match):
+        ops.fused_query(*args, **kwargs)
+    jargs = [jnp.asarray(a.numpy()) for a in args]
+    jkw = {a: jnp.asarray(b.numpy()) if isinstance(b, torch.Tensor) else b
+           for a, b in kwargs.items()}
+    with pytest.raises(ValueError, match=match):
+        jops.fused_query(*jargs, **jkw)
+
+
+def test_impl_cuda_on_cpu_tensors_raises_and_unknown_impl_raises():
+    x, A = torch.ones((3, 4)), torch.ones((4, 8))
+    with pytest.raises(ValueError, match="impl='cuda' needs"):
+        ops.hash_encode(x, A, impl="cuda")
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.hash_encode(x, A, impl="pallas")
+
+
+def test_auto_on_cpu_runs_plain_versions_and_launches_nothing():
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(40)
+    x = t(rng.standard_normal((20, 6)).astype(np.float32))
+    A = t(rng.standard_normal((6, 9)).astype(np.float32))
+    codes = ops.hash_encode(x, A)
+    assert torch.equal(codes, ref.hash_encode_ref(x, A))
+    ham = ops.hamming_scan(codes[:3], codes)
+    assert torch.equal(ham, ref.hamming_ref(codes[:3], codes))
+    cum = torch.tensor([[0, 3, 5]], dtype=torch.int32)
+    starts = torch.tensor([[4, 10]], dtype=torch.int32)
+    assert torch.equal(ops.bucket_gather(cum, starts, 5),
+                       ref.bucket_gather_ref(cum, starts, 5))
+    fv, fp = ops.fused_query(x[:1], cum, starts, x, 5, 2)
+    rv, rp = ref.fused_query_ref(x[:1], cum, starts, x, 5, 2)
+    assert torch.equal(fp, rp) and torch.equal(fv, rv)
+    assert ops.launch_counts == {name: 0 for name in ops.KERNELS}
