@@ -6,7 +6,7 @@
 Phases, each fatal on failure:
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the four CUDA kernels built from ``src/repro_torch/kernels/csrc``.
+   the CUDA kernels built from ``src/repro_torch/kernels/csrc``.
 2. Main path, at the scale of the paper's ImageNet set (synthetic
    ``imagenet`` profile, d = 150): RANGE-LSH build (code_len 32, m 32,
    percentile) and planner calibration, then 1,000 held-out queries in
@@ -16,14 +16,29 @@ Phases, each fatal on failure:
    have launched. Bucket and dense candidate ids must be identical, fused
    ids must match the staged ids tie-aware, and recall@10 against exact
    MIPS must reach the target less 0.05.
-3. Kernels against their plain PyTorch versions on the card, at the
-   shapes the main path gave them and at the padding-probe shapes:
-   integer outputs exactly, fused-query values within atol 1e-4 and
-   rtol 1e-5 (150-term f32 dots summed in another order). Times are
-   medians of 10 CUDA-event-timed runs after warm-up. A kernel's bound
-   counts each input byte it needs once (for the fused query: each
-   probed row once, however many queries of the batch probe it) and
-   the operations this run's probe slots need.
+3. Streaming: phase 2's index mounted as a ``MutableIndex`` (capacity
+   1024, 256 tombstones, engine "auto"), calibrated (256 queries, k 10),
+   then 32 rounds of traffic: 64 inserts of fresh ``imagenet``-profile
+   vectors, 16 deletes of random live ids (8 base rows, 8 delta slots),
+   and one 64-query batch at recall target 0.9 through the "auto" (dense
+   at this size) and the bucket arm. At round 8 one insert has 2.5 times
+   the largest range bound: a localized repartition of the top range,
+   after which the stale calibration is redone. The launch counters are
+   zeroed before the mount and read after the traffic; every kernel of
+   the streaming path must have launched. Then: merged candidates equal
+   a from-scratch rebuild (the port's bucket store and core engines) in
+   both arms, candidates are unchanged across ``compact()``, and recall@10
+   against ``mips_topk`` over the live set reaches 0.85 over all batches.
+4. Kernels against their plain PyTorch versions on the card, at the
+   shapes the two paths gave them and at the padding-probe shapes:
+   integer outputs exactly, fused-query and mips_topk values within atol
+   1e-4 and rtol 1e-5 (150-term f32 dots summed in another order), ids
+   tie-aware. Times are medians of 10 CUDA-event-timed runs after
+   warm-up. A kernel's bound counts each input byte it needs once (for
+   the fused query: each probed row once, however many queries of the
+   batch probe it) and the operations this run's inputs need. A row's
+   launches are those of the path it serves: phase 2 for slice 1's
+   kernels, phase 3 for bucket_match, delta_scan and mips_topk.
 
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -53,6 +68,16 @@ K = 10
 RECALL_TARGET = 0.9
 BATCH = 64
 SEED = 0
+SLICE1_KERNELS = ("hash_encode", "hamming_scan", "bucket_gather",
+                  "fused_query", "fused_query_int8")
+STREAM_KERNELS = ("hash_encode", "bucket_match", "bucket_gather",
+                  "delta_scan", "mips_topk")
+ROUNDS = 32               # streaming traffic
+INSERTS = 64
+DELETES = 16              # half from the base, half from the delta
+OVERFLOW_ROUND = 8
+OVERFLOW_FACTOR = 2.5
+STREAM_RECALL = 0.85
 
 
 def fail(msg: str) -> None:
@@ -105,10 +130,10 @@ def check_topk(name, ids, vals, ref_ids, ref_vals, queries, rows):
             int((ids != ref_ids).sum()))
 
 
-def profile_batch(run, top: int = 8) -> None:
-    """Where one fused query batch spends device time: the device kernels
-    with the most time under ``torch.profiler``, and the device busy share
-    of the batch's wall time (profiler overhead included)."""
+def profile_batch(label, run, top: int = 8) -> None:
+    """Where one query batch spends device time: the device kernels with
+    the most time under ``torch.profiler``, and the device busy share of
+    the batch's wall time (profiler overhead included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -134,7 +159,7 @@ def profile_batch(run, top: int = 8) -> None:
         print("profile: the profiler recorded no device time "
               "(busy share not measured)")
         return
-    print(f"profile: fused batch of {BATCH}: wall {wall_us / 1e3:.3f} ms, "
+    print(f"profile: {label} batch of {BATCH}: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%)")
     for e in kernels[:top]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
@@ -189,6 +214,192 @@ def probe_shapes(ops, dev):
         if bool((gp == 0).any()):
             fail("fused_query probe: an unprobed position surfaced")
         check_topk("fused_query probe", gp, gv, wp, wv, queries, items)
+    q, b = knuth_codes(3, 1, dev), knuth_codes(21, 1, dev)
+    if not torch.equal(ops.bucket_match(q, b, 32, impl="cuda"),
+                       ops.bucket_match(q, b, 32, impl="ref")):
+        fail("bucket_match probe (b=21): kernel != plain")
+    live = torch.tensor([True, False, True, False, True], device=dev)
+    got = ops.delta_scan(q, b[:5], live, 32, impl="cuda")
+    if not torch.equal(got, ops.delta_scan(q, b[:5], live, 32, impl="ref")) \
+            or bool((got[:, ~live] != -1).any()):
+        fail("delta_scan probe (c=5): kernel != plain or a dead slot "
+             "did not read -1")
+    queries = -3.0 * torch.ones((3, 4), device=dev)
+    items = 1.0 + torch.arange(20, dtype=torch.float32, device=dev
+                               ).reshape(5, 4) / 20
+    gv, gi = ops.mips_topk(queries, items, 5, impl="cuda")
+    wv, wi = ops.mips_topk(queries, items, 5, impl="ref")
+    if bool(((gi < 0) | (gi >= 5)).any()):
+        fail("mips_topk probe: an id outside [0, N) surfaced")
+    check_topk("mips_topk probe", gi, gv, wi, wv, queries, items)
+
+
+def rebuild_candidates(mi, queries, num_probe, engine, match_fn):
+    """Oracle: a bucket store rebuilt from scratch over the live set with
+    the port's core (``build_buckets``, ``bucket_candidates``,
+    ``dense_candidates``), mapped back to global ids."""
+    import numpy as np
+    import torch
+    from repro_torch.core.bucket_index import build_buckets
+    from repro_torch.core.engine import bucket_candidates, dense_candidates
+    dev = mi.device
+    rows = np.flatnonzero(mi._live)
+    slots = np.flatnonzero(mi.delta._live[:mi.delta.count])
+    codes = np.concatenate([mi._codes[rows], mi.delta._codes[slots]])
+    rid = np.concatenate([mi._rid[rows], mi.delta._rid[slots]])
+    gids = torch.as_tensor(np.concatenate([rows, mi.store_size + slots]),
+                           device=dev)
+    ctens = torch.as_tensor(codes.view(np.int32), device=dev)
+    rtens = torch.as_tensor(rid, device=dev)
+    b = build_buckets(ctens, rtens, torch.as_tensor(mi.upper, device=dev),
+                      mi.hash_bits, mi.eps)
+    q_codes = mi.encode_queries(queries)
+    if engine == "bucket":
+        local = bucket_candidates(b, q_codes, num_probe, match_fn=match_fn)
+    else:
+        local = dense_candidates(b, q_codes, ctens, rtens, num_probe,
+                                 match_fn=match_fn)
+    return gids[local.long()].to(torch.int32)
+
+
+def streaming_phase(idx, ops, dev):
+    """Phase 3: the streaming service at full size. Returns the launch
+    counts of its path and the inputs of its kernels for phase 4."""
+    import numpy as np
+    import torch
+    from repro_torch import streaming
+    from repro_torch.core import planner
+    from repro_torch.data.synthetic import make_dataset
+
+    traffic = make_dataset("imagenet", SEED + 7, n=ROUNDS * INSERTS, d=DIM,
+                           num_queries=ROUNDS * BATCH)
+    cal_gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    cal_q = torch.randn((planner.DEFAULT_CAL_QUERIES, DIM),
+                        generator=cal_gen, device=dev)
+    rng = np.random.default_rng(SEED + 9)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    mi = streaming.MutableIndex.from_composed(idx)
+
+    def calibrate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mi.set_calibration(planner.calibrate_streaming(mi, cal_q, k=K))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    cal_s = [calibrate()]
+    ms = {"insert": [], "delete": [], "query_auto": [], "query_bucket": []}
+    structural = {"compaction": [], "repartition": []}
+    hits = truth_n = 0
+
+    def timed_op(kind, fn):
+        before = (mi.num_compactions, mi.num_repartitions)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ms[kind].append(1e3 * dt)
+        if mi.num_compactions > before[0]:
+            structural["compaction"].append((kind, dt))
+        if mi.num_repartitions > before[1]:
+            structural["repartition"].append((kind, dt))
+        return out
+
+    for r in range(ROUNDS):
+        vecs = traffic.items[r * INSERTS:(r + 1) * INSERTS].clone()
+        if r == OVERFLOW_ROUND:
+            top = float(mi.upper.max())
+            vecs[0] *= OVERFLOW_FACTOR * top / float(vecs[0].norm())
+        timed_op("insert", lambda: mi.insert(vecs))
+        base = np.flatnonzero(mi._live)
+        delta = mi.store_size + np.flatnonzero(
+            mi.delta._live[:mi.delta.count])
+        victims = np.concatenate([
+            rng.choice(base, DELETES // 2, replace=False),
+            rng.choice(delta, DELETES // 2, replace=False)])
+        timed_op("delete", lambda: mi.delete(victims))
+        if mi.calib_stale:
+            cal_s.append(calibrate())
+        qb = traffic.queries[r * BATCH:(r + 1) * BATCH]
+        mi.engine = "auto"
+        _, got = timed_op("query_auto", lambda: mi.query(
+            qb, K, recall_target=RECALL_TARGET))
+        mi.engine = "bucket"
+        _, got_b = timed_op("query_bucket", lambda: mi.query(
+            qb, K, recall_target=RECALL_TARGET))
+        mi.engine = "auto"
+        if not torch.equal(got, got_b):
+            fail(f"streaming round {r}: bucket and auto query ids differ")
+        live_vecs, gids = mi.live_vectors()
+        _, tpos = ops.mips_topk(qb, live_vecs, K)
+        truth = torch.as_tensor(gids, device=dev)[tpos.long()]
+        hits += int((got[:, :, None] == truth[:, None, :]).any(1).sum())
+        truth_n += truth.numel()
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    print(f"launches on the streaming path: "
+          f"{ {k: launches[k] for k in STREAM_KERNELS} }")
+    idle = [op for op in STREAM_KERNELS if launches[op] == 0]
+    if idle:
+        fail(f"kernels never launched on the streaming path: {idle}")
+    stats = mi.stats()
+    width = planner.plan_global(mi.calib, RECALL_TARGET).num_probe
+    recall = hits / truth_n
+    kinds = [e["kind"] for e in mi.events]
+    print(f"stream: {ROUNDS} rounds of {INSERTS} inserts, {DELETES} deletes, "
+          f"one {BATCH}-query batch at target {RECALL_TARGET}; live "
+          f"{stats['live']}, planned width {width}, recall@{K} {recall:.4f}")
+    for kind, vals in ms.items():
+        print(f"stream: {kind} median {statistics.median(vals):.3f} ms per "
+              f"batch (max {max(vals):.3f} ms)")
+    print(f"stream: calibration s {[round(c, 3) for c in cal_s]}, "
+          f"compactions {stats['compactions']} "
+          f"{[(k, round(d, 3)) for k, d in structural['compaction']]}, "
+          f"repartitions {stats['repartitions']} "
+          f"{[(k, round(d, 3)) for k, d in structural['repartition']]}, "
+          f"events {kinds}")
+    if recall < STREAM_RECALL:
+        fail(f"streaming recall@{K} {recall:.4f} < {STREAM_RECALL}")
+    if "overflow_localized" not in kinds or stats["compactions"] < 1:
+        fail(f"streaming traffic missed its structural events: {kinds}")
+    profile_batch("streaming (auto arm)", lambda: mi.query(
+        traffic.queries[:BATCH], K, recall_target=RECALL_TARGET), top=12)
+
+    # the kernels' inputs at this state, for phase 4
+    qb = traffic.queries[:BATCH]
+    live_vecs, _ = mi.live_vectors()
+    inputs = dict(q_codes=mi.encode_queries(qb), queries=qb,
+                  bucket_code=mi.buckets.bucket_code.clone(),
+                  csr_codes=mi.csr_codes.clone(),
+                  d_codes=mi.delta.codes.clone(), d_live=mi.delta.live.clone(),
+                  live_vecs=live_vecs, hash_bits=mi.hash_bits)
+
+    # merged candidates against a from-scratch rebuild, both arms
+    def match_fn(q_codes, codes):
+        return idx.family.match_counts(idx.params, q_codes, codes,
+                                       mi.hash_bits)
+    for engine in ("bucket", "dense"):
+        mi.engine = engine
+        got = mi.candidates(qb, width)
+        want = rebuild_candidates(mi, qb, width, engine, match_fn)
+        if not torch.equal(got, want):
+            fail(f"streaming {engine} candidates differ from a rebuild "
+                 f"({int((got != want).sum())} slots)")
+    mi.engine = "auto"
+    before = mi.candidates(qb, width)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mi.compact()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t0
+    if not torch.equal(before, mi.candidates(qb, width)):
+        fail("streaming candidates changed across compact()")
+    print(f"stream: candidates equal a from-scratch rebuild (bucket and "
+          f"dense, width {width}) and are unchanged across compact() "
+          f"({t_compact:.3f} s)")
+    return launches, inputs
 
 
 def main() -> int:
@@ -296,8 +507,9 @@ def main() -> int:
                              .any(1).sum())
     torch.cuda.synchronize()
     launches = dict(ops.launch_counts)
-    print(f"launches on the main path: {launches}")
-    idle = [op for op, n in launches.items() if n == 0]
+    print(f"launches on the main path: "
+          f"{ {k: launches[k] for k in SLICE1_KERNELS} }")
+    idle = [op for op in SLICE1_KERNELS if launches[op] == 0]
     if idle:
         fail(f"kernels never launched on the main path: {idle}")
     for arm in arms:
@@ -308,9 +520,12 @@ def main() -> int:
         if rec < RECALL_TARGET - 0.05:
             fail(f"{arm} recall@{K} {rec:.4f} < {RECALL_TARGET - 0.05}")
     print(f"query: fused vs staged ids differ in {tie_diffs} tied slots")
-    profile_batch(lambda: idx.query(ds.queries[:BATCH], k=K))
+    profile_batch("fused", lambda: idx.query(ds.queries[:BATCH], k=K))
 
-    # -- 3. kernels against their plain versions ------------------------------
+    # -- 3. streaming ---------------------------------------------------------
+    stream_launches, st = streaming_phase(idx, ops, dev)
+
+    # -- 4. kernels against their plain versions ------------------------------
     probe_shapes(ops, dev)
     qb = ds.queries[:BATCH]
     fam = idx.family
@@ -380,6 +595,41 @@ def main() -> int:
             source="src/repro_torch/kernels/csrc/fused_query.cu",
             replaces="src/repro/kernels/fused_query.py:156"),
     }
+    # the streaming path's kernels, at the shapes of its last state
+    sq, hb = st["q_codes"], st["hash_bits"]
+    sb, sc = st["bucket_code"].shape[0], st["csr_codes"].shape[0]
+    cap = st["d_codes"].shape[0]
+    nl = st["live_vecs"].shape[0]
+    for name, db in (("bucket_match", st["bucket_code"]),
+                     ("bucket_match_dense", st["csr_codes"])):
+        rows_n = db.shape[0]
+        cases[name] = dict(
+            call=lambda impl, db=db: ops.bucket_match(sq, db, hb, impl=impl),
+            bytes=4 * (BATCH * W + rows_n * W + BATCH * rows_n),
+            ops=2 * BATCH * rows_n * W + BATCH * rows_n,
+            kernel="bucket_match",
+            source="src/repro_torch/kernels/csrc/hamming.cu",
+            replaces="src/repro/kernels/bucket_probe.py:70")
+    cases["delta_scan"] = dict(
+        call=lambda impl: ops.delta_scan(sq, st["d_codes"], st["d_live"], hb,
+                                         impl=impl),
+        bytes=4 * (BATCH * W + cap * W + BATCH * cap) + cap,
+        ops=2 * BATCH * cap * W + 2 * BATCH * cap,
+        source="src/repro_torch/kernels/csrc/hamming.cu",
+        replaces="src/repro/kernels/delta_scan.py:58")
+
+    def library_topk():
+        # one product and one top-k: two PyTorch calls, TF32 off
+        return torch.topk(st["queries"] @ st["live_vecs"].T, K)
+    cases["mips_topk"] = dict(
+        call=lambda impl: ops.mips_topk(st["queries"], st["live_vecs"], K,
+                                        impl=impl),
+        bytes=4 * (BATCH * d + nl * d + 2 * BATCH * K),
+        ops=2 * BATCH * nl * d, library=library_topk,
+        source="src/repro_torch/kernels/csrc/mips_topk.cu",
+        replaces="src/repro/kernels/mips_topk.py:93")
+    print(f"kernel: streaming shapes: directory B={sb}, CSR rows {sc}, "
+          f"delta capacity {cap}, live items {nl}")
     print(f"kernel: main-path batch: {slots} live probe slots over "
           f"{probed_rows} distinct rows, {runs} runs, k'={kp}")
     rows = []
@@ -389,6 +639,9 @@ def main() -> int:
         if name.startswith("fused_query"):
             err, swaps = check_topk(name, got[1], got[0], want[1], want[0],
                                     qb, items_csr)
+        elif name == "mips_topk":
+            err, swaps = check_topk(name, got[1], got[0], want[1], want[0],
+                                    st["queries"], st["live_vecs"])
         else:
             if not torch.equal(got, want):
                 fail(f"{name}: kernel != plain version at the main-path "
@@ -396,15 +649,20 @@ def main() -> int:
             err, swaps = 0.0, 0
         k_ms = timed(lambda: c["call"]("cuda"))
         p_ms = timed(lambda: c["call"]("ref"), reps=10, warmup=1)
+        lib_ms = timed(c["library"]) if "library" in c else None
         t_bytes, t_ops = c["bytes"] / PEAK_BYTES, c["ops"] / PEAK_OPS
+        kernel = c.get("kernel", name)
+        runs = stream_launches if kernel in (
+            "bucket_match", "delta_scan", "mips_topk") else launches
         rows.append({
             "name": name, "route": "cuda", "source": c["source"],
-            "replaces": c["replaces"], "launches": launches[name],
+            "replaces": c["replaces"], "launches": runs[kernel],
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "parity": "ok"})
-        print(f"kernel: {name} {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            "library_ms": lib_ms, "parity": "ok"})
+        lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        print(f"kernel: {name} {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound "
               f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}), "
               f"{c['bytes']} bytes, {c['ops']} ops, max err {err}, "
               f"tied swaps {swaps}")

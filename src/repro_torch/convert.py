@@ -6,6 +6,12 @@ module imports nothing of the JAX package. Packed uint32 codes become
 int32 tensors with the same bits. The result is a
 :class:`repro_torch.core.index.ComposedIndex` whose queries run on the
 same projections, partition, codes and score table as the reference's.
+
+A streaming index crosses as the reference's ``streaming.index_tree``
+(nested dict, each leaf as a numpy array):
+:func:`mutable_index_from_tree` mounts it as a port
+:class:`~repro_torch.streaming.MutableIndex`, as ``load_index`` does with
+a snapshot on disk.
 """
 
 from __future__ import annotations
@@ -74,3 +80,54 @@ def index_from_fields(arrays: Mapping, spec: Mapping, hash_bits: int, *,
         table=tensor("table", np.float32),
         hash_bits=int(hash_bits),
         calib=None if calib is None else calibration_from_fields(calib))
+
+
+def mutable_index_from_tree(tree: Mapping, *, device=None, **kw):
+    """The port's :class:`~repro_torch.streaming.MutableIndex` from an
+    ``index_tree`` (the reference's or the port's; leaves as numpy
+    arrays) on ``device`` (the card unless ``device="cpu"``): same
+    storage, CSR store, delta buffer, bounds, projections and, when the
+    tree has one, calibration. ``kw`` passes runtime knobs (engine, impl,
+    repartition_policy, skew thresholds) to the index."""
+    from repro_torch.core.family import SimpleLSHFamily
+    from repro_torch.streaming.delta import DeltaBuffer
+    from repro_torch.streaming.index import _CSR, MutableIndex
+
+    device = resolve_device(device)
+    st, dl, cs, meta = tree["store"], tree["delta"], tree["csr"], tree["meta"]
+    if int(meta.get("family_id", 0)) != 0:
+        raise ValueError("the snapshot's hash family (SIGN-ALSH) is not yet "
+                         "ported to repro_torch; only 'simple' is")
+    capacity = int(meta["capacity"])
+    delta = DeltaBuffer(capacity, int(dl["items"].shape[1]),
+                        int(dl["codes"].shape[1]), device=device)
+    delta.count = int(dl["count"])
+    delta._norms = np.array(dl["norms"], np.float32)
+    delta._codes = np.array(dl["codes"], np.uint32)
+    delta._rid = np.array(dl["rid"], np.int32)
+    delta._ids = np.array(dl["ids"], np.int32)
+    delta._live = np.array(dl["live"], bool)
+    delta._perm = np.array(dl["perm"], np.int32)
+    delta._ord = np.array(dl["ord"], np.int32)
+    delta.items = torch.as_tensor(np.array(dl["items"], np.float32),
+                                  device=device)
+    delta._sync()
+    csr = _CSR(**{f: np.array(cs[f], np.uint32 if "code" in f else np.int32)
+                  for f in _CSR._fields})
+    mindex = MutableIndex(
+        family=SimpleLSHFamily(),
+        items=np.array(st["items"], np.float32),
+        norms=np.asarray(st["norms"]), codes=np.asarray(st["codes"]),
+        range_id=np.asarray(st["range_id"]), live=np.asarray(st["live"]),
+        upper=np.asarray(meta["upper"]), lower=np.asarray(meta["lower"]),
+        edges=np.asarray(meta["edges"]),
+        A=np.array(meta["A"], np.float32), code_len=int(meta["code_len"]),
+        hash_bits=int(meta["hash_bits"]), eps=float(meta["eps"]),
+        capacity=capacity, max_tombstones=int(meta["max_tombstones"]),
+        csr=csr, delta=delta, tomb_csr=int(meta["tomb_csr"]),
+        device=device, **kw)
+    cal = tree.get("calib")
+    if cal is not None:
+        mindex.calib = calibration_from_fields(cal)
+        mindex.calib_stale = bool(int(cal["stale"]))
+    return mindex

@@ -136,9 +136,17 @@ def calibrate_from_order(order_ids, range_id, truth_ids, *,
                                 truth_ids[s:s + CAL_CHUNK], m)
         g_parts.append(g)
         w_parts.append(w)
+    t_rid = rid_host[truth_ids.reshape(-1).cpu().numpy()]
+    return _fit(g_parts, w_parts, t_rid, counts, grid, int(k), int(q))
+
+
+def _fit(g_parts, w_parts, t_rid: np.ndarray, counts: np.ndarray,
+         grid: np.ndarray, k: int, q: int) -> CalibrationTable:
+    """The table from the truth items' global and within-range probe
+    positions (blocks of (Q_block, k) tensors) and their ranges."""
+    m = counts.shape[0]
     t_gpos = torch.cat(g_parts).reshape(-1).cpu().numpy().astype(np.int64)
     t_wpos = torch.cat(w_parts).reshape(-1).cpu().numpy().astype(np.int64)
-    t_rid = rid_host[truth_ids.reshape(-1).cpu().numpy()]
     total = t_rid.size
 
     recall_global = (t_gpos[None, :] < grid[:, None]).mean(
@@ -155,7 +163,7 @@ def calibrate_from_order(order_ids, range_id, truth_ids, *,
         # the full range holds all its truth items
         recall_range[j, eff >= counts[j]] = 1.0
     return CalibrationTable(grid, recall_range, recall_global, mass,
-                            counts, int(k), int(q))
+                            counts, k, q)
 
 
 def canonical_order(index, queries: torch.Tensor, *, buckets=None
@@ -205,6 +213,50 @@ def calibrate(index, queries: Optional[torch.Tensor] = None, *,
     return calibrate_from_order(order_ids, index.range_id, truth,
                                 num_ranges=int(index.table.shape[0]),
                                 grid=grid)
+
+
+def calibrate_streaming(mindex, queries, *, k: int = DEFAULT_CAL_K,
+                        grid: Optional[np.ndarray] = None
+                        ) -> CalibrationTable:
+    """Calibrate a :class:`repro_torch.streaming.MutableIndex` over its
+    live set (merged base+delta canonical order). Attach with
+    ``mindex.set_calibration(table)``; structural events that move range
+    boundaries flag it stale.
+
+    Live items get compact ids ``[0, live)`` (storage rows first, then
+    delta slots, as :meth:`MutableIndex.live_vectors` orders them). The
+    queries run ``CAL_CHUNK`` at a time: each chunk's full merged order
+    (chunk, live) is made, reduced to its truth positions and dropped, so
+    no (Q, live) array is ever held."""
+    device = mindex.device
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=device)
+    live = mindex.live_count
+    if not 0 < int(k) <= live:
+        raise ValueError(f"calibration k={k} outside (0, live={live}]")
+    vecs, gids = mindex.live_vectors()
+    remap = np.full((mindex.store_size + mindex.delta.capacity,), -1,
+                    np.int32)
+    remap[gids] = np.arange(gids.size, dtype=np.int32)
+    rid_all = np.concatenate([
+        mindex._rid, mindex.delta._rid[:mindex.delta.count]])
+    rid_live = rid_all[gids].astype(np.int64)
+    m = mindex.num_ranges
+    remap_t = torch.from_numpy(remap).to(device)
+    rid_t = torch.from_numpy(rid_live).to(device)
+    g_parts, w_parts, t_parts = [], [], []
+    for s in range(0, queries.shape[0], CAL_CHUNK):
+        qb = queries[s:s + CAL_CHUNK]
+        order = remap_t[mindex.candidates(qb, live)]   # (chunk, live)
+        _, truth = topk.exact_mips(qb, vecs, int(k))    # compact ids
+        g, w = _truth_positions(order, rid_t, truth, m)
+        g_parts.append(g)
+        w_parts.append(w)
+        t_parts.append(truth.reshape(-1).cpu().numpy())
+        del order
+    counts = np.bincount(rid_live, minlength=m).astype(np.int64)
+    grid = default_grid(live) if grid is None else np.asarray(grid, np.int64)
+    return _fit(g_parts, w_parts, rid_live[np.concatenate(t_parts)], counts,
+                grid, int(k), int(queries.shape[0]))
 
 
 # -- planning -----------------------------------------------------------------

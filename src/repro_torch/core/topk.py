@@ -8,26 +8,13 @@ in full f32: TF32 is switched off around them (:func:`full_f32`).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.ref import stable_topk
+from repro_torch.kernels.ref import full_f32, stable_topk
 
 EXACT_CHUNK = 64          # queries per (chunk, N) score block in exact_mips
-
-
-@contextlib.contextmanager
-def full_f32():
-    """Run f32 matrix products without TF32 (cuBLAS would otherwise be
-    free to round inputs to 10 mantissa bits when the flag is on)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def exact_mips(queries: torch.Tensor, items: torch.Tensor, k: int

@@ -28,17 +28,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
-# C entry point and argument types of each library; pointers and the
-# stream go as c_void_p so ctypes never cuts them to 32 bits.
+# library, C entry point and argument types of each kernel entry; pointers
+# and the stream go as c_void_p so ctypes never cuts them to 32 bits.
 SIGNATURES = {
-    "hash_encode": ("repro_hash_encode",
+    "hash_encode": ("hash_encode", "repro_hash_encode",
                     [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]),
-    "hamming": ("repro_hamming", [_P, _P, _P, _I, _LL, _I, _P]),
-    "bucket_gather": ("repro_bucket_gather", [_P, _P, _P, _I, _I, _I, _P]),
-    "fused_query": ("repro_fused_query",
+    "hamming": ("hamming", "repro_hamming", [_P, _P, _P, _I, _LL, _I, _P]),
+    "bucket_match": ("hamming", "repro_bucket_match",
+                     [_P, _P, _P, _I, _LL, _I, _I, _P]),
+    "delta_scan": ("hamming", "repro_delta_scan",
+                   [_P, _P, _P, _P, _I, _LL, _I, _I, _P]),
+    "bucket_gather": ("bucket_gather", "repro_bucket_gather",
+                      [_P, _P, _P, _I, _I, _I, _P]),
+    "fused_query": ("fused_query", "repro_fused_query",
                     [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P]),
+    "mips_topk": ("mips_topk", "repro_mips_topk",
+                  [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _P]),
 }
+LIBRARIES = tuple(dict.fromkeys(lib for lib, _, _ in SIGNATURES.values()))
 
 _functions: Dict[str, ctypes._CFuncPtr] = {}
 build_log: Dict[str, str] = {}
@@ -66,7 +74,7 @@ def build_all() -> Dict[str, Path]:
     output when a source does not compile."""
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {name: out_dir / f"lib{name}.so" for name in SIGNATURES}
+    libs = {name: out_dir / f"lib{name}.so" for name in LIBRARIES}
     procs = {}
     for name, lib in libs.items():
         if lib.exists():
@@ -89,15 +97,16 @@ def build_all() -> Dict[str, Path]:
 
 
 def function(name: str):
-    """The C entry point of kernel library ``name``, building all
+    """The C entry point ``name`` of ``SIGNATURES``, building all
     libraries on the first call."""
     fn = _functions.get(name)
     if fn is None:
-        libs = build_all()
-        for lib_name, (symbol, argtypes) in SIGNATURES.items():
-            f = getattr(ctypes.CDLL(str(libs[lib_name])), symbol)
+        libs = {lib: ctypes.CDLL(str(path))
+                for lib, path in build_all().items()}
+        for entry, (lib, symbol, argtypes) in SIGNATURES.items():
+            f = getattr(libs[lib], symbol)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-            _functions[lib_name] = f
+            _functions[entry] = f
         fn = _functions[name]
     return fn

@@ -12,8 +12,9 @@ Each wrapper validates its inputs as the reference does (same
     kernel-vs-plain comparison of ``chip_smoke.py``).
 
 A wrapper that launches its kernel adds one to ``launch_counts[kernel]``
-(the fused query's int8 build counts as ``fused_query_int8``) and raises ``RuntimeError`` when the launch is refused; nothing falls back to
-the plain version on a CUDA tensor. Outputs are allocated here and the
+(the fused query's int8 build counts as ``fused_query_int8``) and raises
+``RuntimeError`` when the launch is refused; nothing falls back to the
+plain version on a CUDA tensor. Outputs are allocated here and the
 kernels run on the current stream.
 """
 
@@ -27,7 +28,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 IMPLS = ("auto", "cuda", "ref")
-OPS = ("hash_encode", "hamming_scan", "bucket_gather", "fused_query")
+OPS = ("hash_encode", "hamming_scan", "bucket_gather", "fused_query",
+       "bucket_match", "delta_scan", "mips_topk")
 KERNELS = OPS + ("fused_query_int8",)
 
 # per-kernel launches since the last reset (plain-version calls never
@@ -35,6 +37,9 @@ KERNELS = OPS + ("fused_query_int8",)
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _SMEM_LIMIT = 232448          # dynamic shared memory a Hopper block may use
+
+# the largest k of mips_topk: the reference kernel's item block (bn = 256)
+MIPS_MAX_K = 256
 
 
 def reset_launch_counts() -> None:
@@ -75,9 +80,9 @@ def _require(op: str, t: torch.Tensor, name: str, dtype) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(kernel: str, lib: str, *args) -> None:
+def _launch(kernel: str, entry: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
-    err = _build.function(lib)(*args, stream)
+    err = _build.function(entry)(*args, stream)
     if err:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
     launch_counts[kernel] += 1
@@ -113,29 +118,116 @@ def hash_encode(x: torch.Tensor, A: torch.Tensor,
     return out
 
 
-def hamming_scan(q_codes: torch.Tensor, db_codes: torch.Tensor, *,
-                 impl: str = "auto") -> torch.Tensor:
-    """All-pairs Hamming distances (Q, W) x (N, W) -> (Q, N) int32."""
-    _require_nonempty("hamming_scan", Q=q_codes.shape[0],
-                      N=db_codes.shape[0], W=q_codes.shape[1])
+def _check_packed(op: str, q_codes: torch.Tensor, db_codes: torch.Tensor,
+                  rows: str, what: str) -> None:
+    _require_nonempty(op, Q=q_codes.shape[0], **{rows: db_codes.shape[0]},
+                      W=q_codes.shape[1])
     if q_codes.shape[1] != db_codes.shape[1]:
-        raise ValueError(f"hamming_scan: query codes have "
-                         f"{q_codes.shape[1]} words, item codes "
-                         f"{db_codes.shape[1]}")
-    impl = _resolve(impl, "hamming_scan", q_codes, db_codes)
-    if impl == "ref":
-        return _ref.hamming_ref(q_codes, db_codes)
-    q = _require("hamming_scan", q_codes, "q_codes", torch.int32)
-    db = _require("hamming_scan", db_codes, "db_codes", torch.int32)
+        raise ValueError(f"{op}: query codes have {q_codes.shape[1]} "
+                         f"words, {what} {db_codes.shape[1]}")
+
+
+def _packed_scan(op: str, entry: str, q_codes: torch.Tensor,
+                 db_codes: torch.Tensor, *, hash_bits: Optional[int] = None,
+                 live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch one of ``hamming.cu``'s scans into a (Q, N) int32 output
+    (``hash_bits`` for the match epilogues, ``live`` bytes for the
+    delta scan)."""
+    q = _require(op, q_codes, "q_codes", torch.int32)
+    db = _require(op, db_codes, "db_codes", torch.int32)
     Q, W = q.shape
     N = db.shape[0]
     if 64 * W * 4 > _SMEM_LIMIT:
-        raise ValueError(f"hamming_scan: W={W} words do not fit the "
-                         f"kernel's shared-memory query tile")
+        raise ValueError(f"{op}: W={W} words do not fit the kernel's "
+                         f"shared-memory query tile")
     out = torch.empty((Q, N), dtype=torch.int32, device=q.device)
-    _launch("hamming_scan", "hamming", q.data_ptr(), db.data_ptr(),
-            out.data_ptr(), Q, N, W)
+    ptrs = [q.data_ptr(), db.data_ptr()]
+    if live is not None:
+        ptrs.append(live.data_ptr())
+    sizes = [Q, N, W] + ([] if hash_bits is None else [int(hash_bits)])
+    _launch(op, entry, *ptrs, out.data_ptr(), *sizes)
     return out
+
+
+def hamming_scan(q_codes: torch.Tensor, db_codes: torch.Tensor, *,
+                 impl: str = "auto") -> torch.Tensor:
+    """All-pairs Hamming distances (Q, W) x (N, W) -> (Q, N) int32."""
+    _check_packed("hamming_scan", q_codes, db_codes, "N", "item codes")
+    impl = _resolve(impl, "hamming_scan", q_codes, db_codes)
+    if impl == "ref":
+        return _ref.hamming_ref(q_codes, db_codes)
+    return _packed_scan("hamming_scan", "hamming", q_codes, db_codes)
+
+
+def bucket_match(q_codes: torch.Tensor, bucket_codes: torch.Tensor,
+                 hash_bits: int, *, impl: str = "auto") -> torch.Tensor:
+    """Bucket-directory match counts: (Q, W) x (B, W) -> (Q, B) int32
+    ``l = hash_bits - hamming`` (the eq.-12 input)."""
+    _check_packed("bucket_match", q_codes, bucket_codes, "B",
+                  "bucket codes")
+    impl = _resolve(impl, "bucket_match", q_codes, bucket_codes)
+    if impl == "ref":
+        return _ref.bucket_match_ref(q_codes, bucket_codes, hash_bits)
+    return _packed_scan("bucket_match", "bucket_match", q_codes,
+                        bucket_codes, hash_bits=hash_bits)
+
+
+def delta_scan(q_codes: torch.Tensor, delta_codes: torch.Tensor,
+               live: torch.Tensor, hash_bits: int, *,
+               impl: str = "auto") -> torch.Tensor:
+    """Delta-buffer scan: (Q, W) x (C, W) -> (Q, C) int32 match counts
+    ``l = hash_bits - hamming`` with dead slots (``live`` falsy) fused to
+    ``-1`` — the streaming merge ranks them last in one pass."""
+    _check_packed("delta_scan", q_codes, delta_codes, "C", "delta codes")
+    if tuple(live.shape) != (delta_codes.shape[0],):
+        raise ValueError(f"delta_scan: live {tuple(live.shape)} must be "
+                         f"(C={delta_codes.shape[0]},)")
+    impl = _resolve(impl, "delta_scan", q_codes, delta_codes, live)
+    if impl == "ref":
+        return _ref.delta_scan_ref(q_codes, delta_codes, live, hash_bits)
+    return _packed_scan("delta_scan", "delta_scan", q_codes, delta_codes,
+                        hash_bits=hash_bits,
+                        live=(live != 0).contiguous())   # one byte a slot
+
+
+def mips_topk(queries: torch.Tensor, items: torch.Tensor, k: int, *,
+              impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k inner products: vals (Q, k) f32 and ids (Q, k) int32,
+    equal scores to the lower id. ``k`` is at most ``MIPS_MAX_K``."""
+    k = int(k)
+    _require_nonempty("mips_topk", Q=queries.shape[0], N=items.shape[0],
+                      d=queries.shape[1], k=k)
+    if k > items.shape[0]:
+        raise ValueError(f"k={k} must not exceed the item count "
+                         f"N={items.shape[0]}")
+    if k > MIPS_MAX_K:
+        raise ValueError(f"mips_topk: k={k} exceeds the kernel's limit "
+                         f"of {MIPS_MAX_K}")
+    if items.shape[1] != queries.shape[1]:
+        raise ValueError(f"mips_topk: queries have d={queries.shape[1]}, "
+                         f"items d={items.shape[1]}")
+    impl = _resolve(impl, "mips_topk", queries, items)
+    if impl == "ref":
+        return _ref.mips_topk_ref(queries, items, k)
+    queries = _require("mips_topk", queries, "queries", torch.float32)
+    items = _require("mips_topk", items, "items", torch.float32)
+    Q, d = queries.shape
+    N = items.shape[0]
+    dev = queries.device
+    # item chunks of whole 128-item tiles, about two blocks per SM in all
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, (2 * sms) // ((Q + 63) // 64))
+    per_block = -(-N // blocks)
+    per_block = -(-per_block // 128) * 128
+    nblk = -(-N // per_block)
+    part_val = torch.empty((nblk, Q, k), dtype=torch.float32, device=dev)
+    part_id = torch.empty((nblk, Q, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    _launch("mips_topk", "mips_topk", queries.data_ptr(), items.data_ptr(),
+            part_val.data_ptr(), part_id.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), Q, N, d, k, per_block, nblk)
+    return vals, ids
 
 
 def bucket_gather(cum: torch.Tensor, starts: torch.Tensor, num_probe: int,

@@ -13,6 +13,7 @@ and no CPU shifts on uint32, so :func:`popcount32` widens to int64.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -20,6 +21,18 @@ import torch
 from repro_torch.core.hashing import pack_bits
 
 NEG = -3e38       # score of a candidate slot past the query's take total
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run f32 matrix products without TF32 (cuBLAS would otherwise be
+    free to round inputs to 10 mantissa bits when the flag is on)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -88,6 +101,31 @@ def hamming_ref(q_codes: torch.Tensor, db_codes: torch.Tensor
     """All-pairs Hamming distance: (Q, W) x (N, W) -> (Q, N) int32."""
     x = torch.bitwise_xor(q_codes[:, None, :], db_codes[None, :, :])
     return popcount32(x).sum(dim=-1, dtype=torch.int32)
+
+
+def bucket_match_ref(q_codes: torch.Tensor, bucket_codes: torch.Tensor,
+                     hash_bits: int) -> torch.Tensor:
+    """Directory match counts ``hash_bits - hamming``: (Q, B) int32."""
+    return hash_bits - hamming_ref(q_codes, bucket_codes)
+
+
+def delta_scan_ref(q_codes: torch.Tensor, delta_codes: torch.Tensor,
+                   live: torch.Tensor, hash_bits: int) -> torch.Tensor:
+    """Delta-buffer match counts ``hash_bits - hamming`` for live slots,
+    ``-1`` for dead ones: (Q, C) int32."""
+    matches = bucket_match_ref(q_codes, delta_codes, hash_bits)
+    return torch.where(live[None, :] != 0, matches, -1).to(torch.int32)
+
+
+def mips_topk_ref(queries: torch.Tensor, items: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k inner products: the full f32 product (no TF32), then
+    :func:`stable_topk` (equal scores go to the lower id). Returns vals
+    (Q, k) f32 and ids (Q, k) int32."""
+    with full_f32():
+        scores = queries.to(torch.float32) @ items.to(torch.float32).T
+    vals, ids = stable_topk(scores, k)
+    return vals, ids.to(torch.int32)
 
 
 def bucket_gather_ref(cum: torch.Tensor, starts: torch.Tensor,

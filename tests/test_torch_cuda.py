@@ -4,8 +4,9 @@ without one; the file imports no JAX, so it runs on a machine without it:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Integer outputs must be equal; fused-query values within atol 1e-4,
-rtol 1e-5 (f32 dots summed in another order), positions tie-aware.
+Integer outputs must be equal; fused-query and mips_topk values within
+atol 1e-4, rtol 1e-5 (f32 dots summed in another order), positions and
+ids tie-aware.
 ``chip_smoke.py`` repeats the comparison at the main path's full shapes.
 """
 
@@ -71,6 +72,63 @@ def test_gather_and_fused_kernels_equal_plain(cuda_device, quantized):
                           wp.cpu().numpy(), wv.cpu().numpy())
 
 
+def _words(rng, n, w, device):
+    """Random packed words, a third of them with bit 31 set (negative in
+    the int32 view)."""
+    u = rng.integers(0, 2 ** 32, size=(n, w), dtype=np.uint64)
+    u[::3] |= np.uint64(2 ** 31)
+    return torch.as_tensor(u.astype(np.uint32).view(np.int32), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,w", [(64, 1024, 1), (3, 70, 2), (65, 1031, 3)])
+def test_bucket_match_and_delta_scan_kernels_equal_plain(cuda_device, q, n,
+                                                         w):
+    rng = np.random.default_rng(70 + n)
+    qc, db = _words(rng, q, w, cuda_device), _words(rng, n, w, cuda_device)
+    hash_bits = 32 * w - 5
+    assert torch.equal(ops.bucket_match(qc, db, hash_bits, impl="cuda"),
+                       ops.bucket_match(qc, db, hash_bits, impl="ref"))
+    live = torch.as_tensor(rng.random(n) < 0.6, device=cuda_device)
+    got = ops.delta_scan(qc, db, live, hash_bits, impl="cuda")
+    assert torch.equal(got, ops.delta_scan(qc, db, live, hash_bits,
+                                           impl="ref"))
+    assert bool((got[:, ~live] == -1).all())
+    assert bool((got[:, live] >= 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,d,k", [(64, 5000, 150, 10), (3, 5, 4, 5),
+                                     (70, 3001, 33, 256), (1, 129, 7, 1)])
+def test_mips_topk_kernel_equals_plain(cuda_device, q, n, d, k):
+    rng = np.random.default_rng(80 + n)
+    queries = torch.as_tensor(rng.standard_normal((q, d)).astype(np.float32),
+                              device=cuda_device)
+    items = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32),
+                            device=cuda_device)
+    if n == 5:                  # every score negative, k == N
+        queries, items = -3.0 * queries.abs(), items.abs() + 1.0
+    gv, gi = ops.mips_topk(queries, items, k, impl="cuda")
+    wv, wi = ops.mips_topk(queries, items, k, impl="ref")
+    assert bool(((gi >= 0) & (gi < n)).all())
+    assert_topk_tie_aware(gi.cpu().numpy(), gv.cpu().numpy(),
+                          wi.cpu().numpy(), wv.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_mips_topk_kernel_breaks_exact_ties_to_the_lower_id(cuda_device):
+    """Small-integer rows give exact f32 dots with many equal scores:
+    the kernel must pick the same ids as the plain version, slot by slot."""
+    rng = np.random.default_rng(90)
+    queries = torch.as_tensor(rng.integers(-2, 3, (40, 12)).astype(np.float32),
+                              device=cuda_device)
+    items = torch.as_tensor(rng.integers(-2, 3, (7000, 12)).astype(np.float32),
+                            device=cuda_device)
+    gv, gi = ops.mips_topk(queries, items, 50, impl="cuda")
+    wv, wi = ops.mips_topk(queries, items, 50, impl="ref")
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
+
+
 @pytest.mark.cuda
 def test_auto_on_cuda_launches_the_kernels(cuda_device):
     ops.reset_launch_counts()
@@ -84,5 +142,9 @@ def test_auto_on_cuda_launches_the_kernels(cuda_device):
     ops.fused_query(x[:1], cum, starts, x, 5, 2)
     payload, scale = quantize_payload(x)
     ops.fused_query(x[:1], cum, starts, x, 5, 2, payload=payload, scale=scale)
+    ops.bucket_match(codes[:8], codes, 27)
+    ops.delta_scan(codes[:8], codes, torch.ones(64, dtype=torch.bool,
+                                                device=cuda_device), 27)
+    ops.mips_topk(x[:8], x, 3)
     torch.cuda.synchronize()
     assert ops.launch_counts == {name: 1 for name in ops.KERNELS}

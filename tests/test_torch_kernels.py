@@ -188,6 +188,96 @@ def test_fused_query_poison_and_int8_probes_match_pallas():
                                    rtol=1e-5)
 
 
+# -- bucket_match, delta_scan, mips_topk --------------------------------------
+
+
+def _top_bit_codes(rng, n, w):
+    c = _codes(rng, n, w)
+    c[::2, 0] |= np.uint32(2 ** 31)        # negative in the int32 view
+    return c
+
+
+@pytest.mark.parametrize("q,c,w", [(8, 64, 1), (37, 130, 2), (64, 128, 4),
+                                   (1, 1, 1)])
+def test_bucket_match_and_delta_scan_match_pallas(q, c, w):
+    """The streaming tests' shapes, words with bit 31 set: the plain
+    versions equal the Pallas kernels (interpret mode) exactly."""
+    rng = np.random.default_rng(100 + c)
+    qc, dc = _top_bit_codes(rng, q, w), _top_bit_codes(rng, c, w)
+    live = rng.random(c) < 0.5
+    hash_bits = 32 * w - 3
+    want = jops.bucket_match(jnp.asarray(qc), jnp.asarray(dc), hash_bits,
+                             impl="pallas")
+    got = ops.bucket_match(t(u32_to_i32(qc)), t(u32_to_i32(dc)), hash_bits,
+                           impl="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = jops.delta_scan(jnp.asarray(qc), jnp.asarray(dc),
+                           jnp.asarray(live), hash_bits, impl="pallas")
+    got = ops.delta_scan(t(u32_to_i32(qc)), t(u32_to_i32(dc)), t(live),
+                         hash_bits, impl="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy()[:, ~live] == -1).all()
+
+
+def test_packed_scan_probes_match_pallas():
+    """K4 probes: a directory far below the 512 tile, and a 5-slot delta
+    whose dead slots must fuse to -1."""
+    q, b = jops._codes(3, 1), jops._codes(21, 1)
+    want = jops.bucket_match(q, b, 32, impl="pallas")
+    got = ops.bucket_match(t(u32_to_i32(q)), t(u32_to_i32(b)), 32,
+                           impl="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    d = jops._codes(5, 1)
+    live = np.asarray([True, False, True, False, True])
+    want = jops.delta_scan(q, d, jnp.asarray(live), 32, impl="pallas")
+    got = ops.delta_scan(t(u32_to_i32(q)), t(u32_to_i32(d)), t(live), 32,
+                         impl="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_mips_topk_matches_pallas(negative):
+    """Random rows, and the K4 probe's all-negative scores with k == N
+    (a padded row must never surface): values within ATOL/RTOL, ids
+    tie-aware."""
+    if negative:
+        queries = -3.0 * np.ones((3, 4), np.float32)
+        items = 1.0 + np.arange(20, dtype=np.float32).reshape(5, 4) / 20
+        k = 5
+    else:
+        rng = np.random.default_rng(110)
+        queries = rng.standard_normal((9, 16)).astype(np.float32)
+        items = rng.standard_normal((300, 16)).astype(np.float32)
+        k = 7
+    wv, wi = jops.mips_topk(jnp.asarray(queries), jnp.asarray(items), k,
+                            impl="pallas")
+    gv, gi = ops.mips_topk(t(queries), t(items), k, impl="ref")
+    assert gi.dtype == torch.int32 and (gi.numpy() < items.shape[0]).all()
+    assert_topk_tie_aware(gi.numpy(), gv.numpy(), wi, wv)
+
+
+def test_mips_topk_ties_go_to_the_lower_id_like_the_reference():
+    rng = np.random.default_rng(111)
+    queries = rng.integers(-2, 3, (6, 8)).astype(np.float32)
+    items = rng.integers(-2, 3, (400, 8)).astype(np.float32)   # exact dots
+    wv, wi = jops.mips_topk(jnp.asarray(queries), jnp.asarray(items), 20,
+                            impl="ref")
+    gv, gi = ops.mips_topk(t(queries), t(items), 20, impl="ref")
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+def test_mips_topk_k_limits_raise_value_error():
+    q, items = np.ones((2, 4), np.float32), np.ones((5, 4), np.float32)
+    with pytest.raises(ValueError, match="must not exceed the item count"):
+        jops.mips_topk(jnp.asarray(q), jnp.asarray(items), 6)
+    with pytest.raises(ValueError, match="must not exceed the item count"):
+        ops.mips_topk(t(q), t(items), 6)
+    many = np.ones((300, 4), np.float32)
+    with pytest.raises(ValueError, match="exceeds the kernel's limit"):
+        ops.mips_topk(t(q), t(many), 257)
+
+
 # -- validation and dispatch ------------------------------------------------
 
 
@@ -203,6 +293,13 @@ def _zero_size_calls():
         "fused_query": lambda: ops.fused_query(
             torch.zeros((0, 4), dtype=f), torch.zeros((0, 3), dtype=i),
             torch.zeros((0, 2), dtype=i), torch.zeros((8, 4)), 4, 2),
+        "bucket_match": lambda: ops.bucket_match(
+            torch.zeros((2, 1), dtype=i), torch.zeros((0, 1), dtype=i), 32),
+        "delta_scan": lambda: ops.delta_scan(
+            torch.zeros((0, 1), dtype=i), torch.zeros((4, 1), dtype=i),
+            torch.ones((4,), dtype=torch.bool), 32),
+        "mips_topk": lambda: ops.mips_topk(torch.zeros((2, 4)),
+                                           torch.zeros((0, 4)), 1),
     }
 
 
@@ -262,4 +359,12 @@ def test_auto_on_cpu_runs_plain_versions_and_launches_nothing():
     fv, fp = ops.fused_query(x[:1], cum, starts, x, 5, 2)
     rv, rp = ref.fused_query_ref(x[:1], cum, starts, x, 5, 2)
     assert torch.equal(fp, rp) and torch.equal(fv, rv)
+    assert torch.equal(ops.bucket_match(codes[:3], codes, 9),
+                       ref.bucket_match_ref(codes[:3], codes, 9))
+    live = torch.arange(20) % 3 > 0
+    assert torch.equal(ops.delta_scan(codes[:3], codes, live, 9),
+                       ref.delta_scan_ref(codes[:3], codes, live, 9))
+    mv, mi = ops.mips_topk(x[:3], x, 4)
+    rv, ri = ref.mips_topk_ref(x[:3], x, 4)
+    assert torch.equal(mi, ri) and torch.equal(mv, rv)
     assert ops.launch_counts == {name: 0 for name in ops.KERNELS}
