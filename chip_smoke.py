@@ -34,11 +34,14 @@ Phases, each fatal on failure:
    integer outputs exactly, fused-query and mips_topk values within atol
    1e-4 and rtol 1e-5 (150-term f32 dots summed in another order), ids
    tie-aware. Times are medians of 10 CUDA-event-timed runs after
-   warm-up. A kernel's bound counts each input byte it needs once (for
-   the fused query: each probed row once, however many queries of the
-   batch probe it) and the operations this run's inputs need. A row's
-   launches are those of the path it serves: phase 2 for slice 1's
-   kernels, phase 3 for bucket_match, delta_scan and mips_topk.
+   warm-up (``ms``); the fused query and mips_topk also get ``ms_cold``,
+   each launch timed alone after a 256 MiB write that flushes the 50 MB
+   L2. A kernel's bound counts each input byte it needs once (for the
+   fused query: each probed row once, however many queries of the batch
+   probe it) and the operations this run's inputs need. A row's
+   ``launches`` are those of the path it serves (phase 2 for slice 1's
+   kernels, phase 3 for bucket_match, delta_scan and mips_topk) at the
+   shape the row is timed at; ``launches_all`` counts every shape.
 
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -131,9 +134,9 @@ def check_topk(name, ids, vals, ref_ids, ref_vals, queries, rows):
 
 
 def profile_batch(label, run, top: int = 8) -> None:
-    """Where one query batch spends device time: the device kernels with
-    the most time under ``torch.profiler``, and the device busy share of
-    the batch's wall time (profiler overhead included)."""
+    """Where one query batch (or one kernel call) spends device time: the
+    device kernels with the most time under ``torch.profiler``, and the
+    device busy share of the wall time (profiler overhead included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -159,7 +162,7 @@ def profile_batch(label, run, top: int = 8) -> None:
         print("profile: the profiler recorded no device time "
               "(busy share not measured)")
         return
-    print(f"profile: {label} batch of {BATCH}: wall {wall_us / 1e3:.3f} ms, "
+    print(f"profile: {label}: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%)")
     for e in kernels[:top]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
@@ -171,6 +174,40 @@ def knuth_codes(n, w, device):
     v = (i * 2654435761 + 12345) & 0xFFFFFFFF
     return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32
                                                          ).reshape(n, w)
+
+
+def timed_cold(fn, flush, reps: int = 10) -> float:
+    """Median milliseconds of one ``fn()`` launched right after ``flush``
+    is overwritten, so its inputs start outside L2."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.add_(1.0)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def ptxas_report(log: str):
+    """(function, registers and shared memory, spills) of each kernel
+    function in ``nvcc -Xptxas -v`` output."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line
+        elif "Used" in line and "registers" in line and name:
+            out.append((name, line.split("info    :")[-1].strip(), spill))
+            name, spill = None, ""
+    return out
 
 
 def probe_shapes(ops, dev):
@@ -339,6 +376,7 @@ def streaming_phase(idx, ops, dev):
         truth_n += truth.numel()
     torch.cuda.synchronize()
     launches = dict(ops.launch_counts)
+    shapes = dict(ops.launch_shapes)
     print(f"launches on the streaming path: "
           f"{ {k: launches[k] for k in STREAM_KERNELS} }")
     idle = [op for op in STREAM_KERNELS if launches[op] == 0]
@@ -364,7 +402,7 @@ def streaming_phase(idx, ops, dev):
         fail(f"streaming recall@{K} {recall:.4f} < {STREAM_RECALL}")
     if "overflow_localized" not in kinds or stats["compactions"] < 1:
         fail(f"streaming traffic missed its structural events: {kinds}")
-    profile_batch("streaming (auto arm)", lambda: mi.query(
+    profile_batch(f"streaming (auto arm) batch of {BATCH}", lambda: mi.query(
         traffic.queries[:BATCH], K, recall_target=RECALL_TARGET), top=12)
 
     # the kernels' inputs at this state, for phase 4
@@ -399,7 +437,7 @@ def streaming_phase(idx, ops, dev):
     print(f"stream: candidates equal a from-scratch rebuild (bucket and "
           f"dense, width {width}) and are unchanged across compact() "
           f"({t_compact:.3f} s)")
-    return launches, inputs
+    return launches, shapes, inputs
 
 
 def main() -> int:
@@ -434,9 +472,8 @@ def main() -> int:
     _build.build_all()
     print(f"build: kernels {time.perf_counter() - t:.2f} s")
     for name, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for func, used, spill in ptxas_report(log):
+            print(f"  ptxas {name}: {func}: {used}; {spill}")
 
     # -- 2. main path ---------------------------------------------------------
     ds = make_dataset("imagenet", SEED, n=N_ITEMS, d=DIM,
@@ -507,6 +544,7 @@ def main() -> int:
                              .any(1).sum())
     torch.cuda.synchronize()
     launches = dict(ops.launch_counts)
+    shapes = dict(ops.launch_shapes)
     print(f"launches on the main path: "
           f"{ {k: launches[k] for k in SLICE1_KERNELS} }")
     idle = [op for op in SLICE1_KERNELS if launches[op] == 0]
@@ -520,10 +558,11 @@ def main() -> int:
         if rec < RECALL_TARGET - 0.05:
             fail(f"{arm} recall@{K} {rec:.4f} < {RECALL_TARGET - 0.05}")
     print(f"query: fused vs staged ids differ in {tie_diffs} tied slots")
-    profile_batch("fused", lambda: idx.query(ds.queries[:BATCH], k=K))
+    profile_batch(f"fused batch of {BATCH}",
+                  lambda: idx.query(ds.queries[:BATCH], k=K))
 
     # -- 3. streaming ---------------------------------------------------------
-    stream_launches, st = streaming_phase(idx, ops, dev)
+    stream_launches, stream_shapes, st = streaming_phase(idx, ops, dev)
 
     # -- 4. kernels against their plain versions ------------------------------
     probe_shapes(ops, dev)
@@ -585,7 +624,7 @@ def main() -> int:
             bytes=fused_io + probed_rows * (4 * d + 4),
             ops=2 * (slots + surv) * d,
             source="src/repro_torch/kernels/csrc/fused_query.cu",
-            replaces="src/repro/kernels/fused_query.py:156"),
+            replaces="src/repro/kernels/fused_query.py:156", cold=True),
         "fused_query_int8": dict(
             call=lambda impl: ops.fused_query(
                 qb, cum, starts, items_csr, total, K, payload=payload,
@@ -593,7 +632,7 @@ def main() -> int:
             bytes=fused_io + probed_rows * (d + 4) + surv8_rows * 4 * d,
             ops=2 * (slots + surv8) * d,
             source="src/repro_torch/kernels/csrc/fused_query.cu",
-            replaces="src/repro/kernels/fused_query.py:156"),
+            replaces="src/repro/kernels/fused_query.py:156", cold=True),
     }
     # the streaming path's kernels, at the shapes of its last state
     sq, hb = st["q_codes"], st["hash_bits"]
@@ -627,15 +666,18 @@ def main() -> int:
         bytes=4 * (BATCH * d + nl * d + 2 * BATCH * K),
         ops=2 * BATCH * nl * d, library=library_topk,
         source="src/repro_torch/kernels/csrc/mips_topk.cu",
-        replaces="src/repro/kernels/mips_topk.py:93")
+        replaces="src/repro/kernels/mips_topk.py:93", cold=True)
     print(f"kernel: streaming shapes: directory B={sb}, CSR rows {sc}, "
           f"delta capacity {cap}, live items {nl}")
     print(f"kernel: main-path batch: {slots} live probe slots over "
           f"{probed_rows} distinct rows, {runs} runs, k'={kp}")
     rows = []
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     for name, c in cases.items():
         got, want = c["call"]("cuda"), c["call"]("ref")
         torch.cuda.synchronize()
+        kernel = c.get("kernel", name)
+        shape = ops.last_shape[kernel]
         if name.startswith("fused_query"):
             err, swaps = check_topk(name, got[1], got[0], want[1], want[0],
                                     qb, items_csr)
@@ -650,22 +692,34 @@ def main() -> int:
         k_ms = timed(lambda: c["call"]("cuda"))
         p_ms = timed(lambda: c["call"]("ref"), reps=10, warmup=1)
         lib_ms = timed(c["library"]) if "library" in c else None
+        cold_ms = (timed_cold(lambda: c["call"]("cuda"), flush)
+                   if c.get("cold") else None)
         t_bytes, t_ops = c["bytes"] / PEAK_BYTES, c["ops"] / PEAK_OPS
-        kernel = c.get("kernel", name)
-        runs = stream_launches if kernel in (
-            "bucket_match", "delta_scan", "mips_topk") else launches
+        streaming = kernel in ("bucket_match", "delta_scan", "mips_topk")
+        runs = stream_launches if streaming else launches
+        at_shape = (stream_shapes if streaming else shapes).get(
+            (kernel, shape), 0)
         rows.append({
             "name": name, "route": "cuda", "source": c["source"],
-            "replaces": c["replaces"], "launches": runs[kernel],
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "replaces": c["replaces"], "launches": at_shape,
+            "launches_all": runs[kernel], "shape": list(shape),
+            "max_abs_err": err, "ms": k_ms, "ms_cold": cold_ms,
+            "plain_ms": p_ms,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "parity": "ok"})
         lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        lib += "" if cold_ms is None else f", cold {cold_ms:.4f} ms"
         print(f"kernel: {name} {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound "
               f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}), "
               f"{c['bytes']} bytes, {c['ops']} ops, max err {err}, "
-              f"tied swaps {swaps}")
+              f"tied swaps {swaps}, launches {at_shape} at {shape} "
+              f"({runs[kernel]} in all)")
+    # device time of each launch inside the two-launch kernels
+    redesigned = ("fused_query", "fused_query_int8", "mips_topk")
+    profile_batch("one call each of " + ", ".join(redesigned),
+                  lambda: [cases[n]["call"]("cuda") for n in redesigned],
+                  top=6)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ Each wrapper validates its inputs as the reference does (same
     kernel-vs-plain comparison of ``chip_smoke.py``).
 
 A wrapper that launches its kernel adds one to ``launch_counts[kernel]``
-(the fused query's int8 build counts as ``fused_query_int8``) and raises
+(the fused query's int8 build counts as ``fused_query_int8``) and to
+``launch_shapes[(kernel, shape)]``, where ``shape`` is the tuple of sizes
+the launch passes (``last_shape[kernel]`` keeps the latest), and raises
 ``RuntimeError`` when the launch is refused; nothing falls back to the
 plain version on a CUDA tensor. Outputs are allocated here and the
 kernels run on the current stream.
@@ -20,7 +22,7 @@ kernels run on the current stream.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,16 +37,31 @@ KERNELS = OPS + ("fused_query_int8",)
 # per-kernel launches since the last reset (plain-version calls never
 # count)
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+# the same, by launch shape: (kernel, sizes) -> launches
+launch_shapes: Dict[Tuple[str, Tuple[int, ...]], int] = {}
+last_shape: Dict[str, Tuple[int, ...]] = {}
 
 _SMEM_LIMIT = 232448          # dynamic shared memory a Hopper block may use
 
 # the largest k of mips_topk: the reference kernel's item block (bn = 256)
 MIPS_MAX_K = 256
+MIPS_QUERY_TILE = 64          # queries per block of mips_topk.cu
+MIPS_ITEM_TILE = 128          # items per tile; a block's chunk is whole tiles
+
+# fused_query.cu: probe slots per span block (its kSpan), the widest query
+# it holds in registers (kMaxD), span-list entries its merge stages at once
+# (kMergeStage), and the span kernel's static shared memory
+FUSED_SPAN = 2048
+FUSED_MAX_D = 512
+FUSED_MERGE_STAGE = 2048
+_FUSED_STATIC_SMEM = 4 * (256 + 8 + 4)
 
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
+    launch_shapes.clear()
+    last_shape.clear()
 
 
 def _resolve(impl: str, op: str, *tensors: torch.Tensor) -> str:
@@ -80,12 +97,15 @@ def _require(op: str, t: torch.Tensor, name: str, dtype) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(kernel: str, entry: str, *args) -> None:
+def _launch(kernel: str, entry: str, *args, shape: Tuple[int, ...]) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     err = _build.function(entry)(*args, stream)
     if err:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
     launch_counts[kernel] += 1
+    key = (kernel, tuple(int(v) for v in shape))
+    launch_shapes[key] = launch_shapes.get(key, 0) + 1
+    last_shape[kernel] = key[1]
 
 
 def hash_encode(x: torch.Tensor, A: torch.Tensor,
@@ -114,7 +134,7 @@ def hash_encode(x: torch.Tensor, A: torch.Tensor,
     W = (L + 31) // 32
     out = torch.empty((N, W), dtype=torch.int32, device=x.device)
     _launch("hash_encode", "hash_encode", *(a.data_ptr() for a in args),
-            out.data_ptr(), N, d, L, W)
+            out.data_ptr(), N, d, L, W, shape=(N, d, L, W))
     return out
 
 
@@ -145,7 +165,7 @@ def _packed_scan(op: str, entry: str, q_codes: torch.Tensor,
     if live is not None:
         ptrs.append(live.data_ptr())
     sizes = [Q, N, W] + ([] if hash_bits is None else [int(hash_bits)])
-    _launch(op, entry, *ptrs, out.data_ptr(), *sizes)
+    _launch(op, entry, *ptrs, out.data_ptr(), *sizes, shape=sizes)
     return out
 
 
@@ -214,20 +234,45 @@ def mips_topk(queries: torch.Tensor, items: torch.Tensor, k: int, *,
     Q, d = queries.shape
     N = items.shape[0]
     dev = queries.device
-    # item chunks of whole 128-item tiles, about two blocks per SM in all
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, (2 * sms) // ((Q + 63) // 64))
-    per_block = -(-N // blocks)
-    per_block = -(-per_block // 128) * 128
-    nblk = -(-N // per_block)
+    per_block, nblk = mips_topk_plan(Q, N, _mips_blocks_per_sm(k), sms)
     part_val = torch.empty((nblk, Q, k), dtype=torch.float32, device=dev)
     part_id = torch.empty((nblk, Q, k), dtype=torch.int32, device=dev)
     vals = torch.empty((Q, k), dtype=torch.float32, device=dev)
     ids = torch.empty((Q, k), dtype=torch.int32, device=dev)
     _launch("mips_topk", "mips_topk", queries.data_ptr(), items.data_ptr(),
             part_val.data_ptr(), part_id.data_ptr(), vals.data_ptr(),
-            ids.data_ptr(), Q, N, d, k, per_block, nblk)
+            ids.data_ptr(), Q, N, d, k, per_block, nblk,
+            shape=(Q, N, d, k))
     return vals, ids
+
+
+def mips_topk_plan(Q: int, N: int, blocks_per_sm: int, sms: int
+                   ) -> Tuple[int, int]:
+    """(items per block, item blocks) of ``mips_topk``'s first launch:
+    contiguous chunks of whole item tiles, as many as fill one wave of
+    ``blocks_per_sm`` blocks on each of ``sms`` SMs across the query
+    tiles."""
+    qtiles = -(-Q // MIPS_QUERY_TILE)
+    target = max(1, blocks_per_sm * sms // qtiles)
+    per_block = -(-N // target)
+    per_block = -(-per_block // MIPS_ITEM_TILE) * MIPS_ITEM_TILE
+    return per_block, -(-N // per_block)
+
+
+_mips_occupancy: Dict[int, int] = {}
+
+
+def _mips_blocks_per_sm(k: int) -> int:
+    """Blocks of mips_topk's partial kernel that fit one SM at this k, as
+    the CUDA runtime reckons them from its registers and shared memory."""
+    n = _mips_occupancy.get(k)
+    if n is None:
+        n = _build.function("mips_topk_blocks")(k)
+        if n <= 0:
+            raise RuntimeError(f"mips_topk: occupancy query failed ({n})")
+        _mips_occupancy[k] = n
+    return n
 
 
 def bucket_gather(cum: torch.Tensor, starts: torch.Tensor, num_probe: int,
@@ -249,7 +294,8 @@ def bucket_gather(cum: torch.Tensor, starts: torch.Tensor, num_probe: int,
     Q, S = starts.shape
     out = torch.empty((Q, num_probe), dtype=torch.int32, device=cum.device)
     _launch("bucket_gather", "bucket_gather", cum.data_ptr(),
-            starts.data_ptr(), out.data_ptr(), Q, S, num_probe)
+            starts.data_ptr(), out.data_ptr(), Q, S, num_probe,
+            shape=(Q, S, num_probe))
     return out
 
 
@@ -296,10 +342,9 @@ def fused_query(queries: torch.Tensor, cum: torch.Tensor,
     cum = _require("fused_query", cum, "cum", torch.int32)
     starts = _require("fused_query", starts, "starts", torch.int32)
     items = _require("fused_query", items, "items", torch.float32)
-    if payload is None:
-        payload = items
-        scale = torch.ones((N, 1), dtype=torch.float32, device=items.device)
-    if payload.shape != (N, d) or tuple(scale.shape) != (N, 1):
+    if payload is None:            # unit scales: the kernel reads none
+        payload, scale = items, None
+    elif payload.shape != (N, d) or tuple(scale.shape) != (N, 1):
         raise ValueError(f"fused_query: payload {tuple(payload.shape)} and "
                          f"scale {tuple(scale.shape)} must be ({N}, {d}) "
                          f"and ({N}, 1)")
@@ -307,17 +352,57 @@ def fused_query(queries: torch.Tensor, cum: torch.Tensor,
         raise ValueError(f"fused_query: payload must be int8 or float32, "
                          f"got {payload.dtype}")
     payload = payload.contiguous()
-    scale = _require("fused_query", scale, "scale", torch.float32)
-    if 4 * (d + 5 * 512 + 6 * kprime) > _SMEM_LIMIT:
-        raise ValueError(f"fused_query: d={d}, kprime={kprime} do not fit "
-                         f"the kernel's shared-memory survivor buffer")
-    vals = torch.empty((Q, kprime), dtype=torch.float32,
-                       device=queries.device)
-    pos = torch.empty((Q, kprime), dtype=torch.int32, device=queries.device)
+    if scale is not None:
+        scale = _require("fused_query", scale, "scale", torch.float32)
     int8 = payload.dtype == torch.int8
+    plan = fused_query_plan(Q, total, d, kprime)
+    dev = queries.device
+    part_val = torch.empty(plan.lists, dtype=torch.float32, device=dev)
+    part_slot = torch.empty(plan.lists, dtype=torch.int32, device=dev)
+    part_pos = torch.empty(plan.lists, dtype=torch.int32, device=dev)
+    part_cnt = torch.empty(plan.counts, dtype=torch.int32, device=dev)
+    vals = torch.empty((Q, kprime), dtype=torch.float32, device=dev)
+    pos = torch.empty((Q, kprime), dtype=torch.int32, device=dev)
     _launch("fused_query_int8" if int8 else "fused_query", "fused_query",
             queries.data_ptr(), cum.data_ptr(), starts.data_ptr(),
-            payload.data_ptr(), int(int8), scale.data_ptr(),
-            items.data_ptr(), vals.data_ptr(), pos.data_ptr(), Q, S, d,
-            total, kprime)
+            payload.data_ptr(), int(int8),
+            None if scale is None else scale.data_ptr(), items.data_ptr(),
+            part_val.data_ptr(), part_slot.data_ptr(), part_pos.data_ptr(),
+            part_cnt.data_ptr(), vals.data_ptr(), pos.data_ptr(), Q, S, d,
+            total, kprime, FUSED_SPAN, plan.kb, plan.nspan,
+            shape=(Q, S, d, total, kprime))
     return vals[:, :k], pos[:, :k]
+
+
+class FusedPlan(NamedTuple):
+    """Launch plan of ``fused_query.cu``: ``nspan`` span blocks per query,
+    each keeping its ``kb`` best slots, merged ``group`` lists at a time;
+    scratch lists of shape ``lists``
+    and counts of shape ``counts``; dynamic shared memory of the span and
+    merge kernels in bytes."""
+    nspan: int
+    kb: int
+    group: int
+    lists: Tuple[int, int, int]
+    counts: Tuple[int, int]
+    span_smem: int
+    merge_smem: int
+
+
+def fused_query_plan(Q: int, total: int, d: int, kprime: int) -> FusedPlan:
+    """Span count, scratch shapes and shared memory of a fused_query
+    launch; ``ValueError`` when the query width or the survivor buffers
+    do not fit the kernels."""
+    if d > FUSED_MAX_D:
+        raise ValueError(f"fused_query: d={d} exceeds the kernel's "
+                         f"register-held query width {FUSED_MAX_D}")
+    nspan = -(-total // FUSED_SPAN)
+    kb = min(kprime, FUSED_SPAN)
+    span_smem = 4 * (2 * (FUSED_SPAN + FUSED_SPAN // 32) + 3 * kb)
+    group = max(1, min(nspan, FUSED_MERGE_STAGE // kb))
+    merge_smem = 4 * (6 * kprime + (3 * kb + 1) * group)
+    if max(span_smem + _FUSED_STATIC_SMEM, merge_smem) > _SMEM_LIMIT:
+        raise ValueError(f"fused_query: d={d}, kprime={kprime} do not fit "
+                         f"the kernel's shared-memory survivor buffer")
+    return FusedPlan(nspan, kb, group, (Q, nspan, kb), (Q, nspan),
+                     span_smem, merge_smem)

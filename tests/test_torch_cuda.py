@@ -148,3 +148,92 @@ def test_auto_on_cuda_launches_the_kernels(cuda_device):
     ops.mips_topk(x[:8], x, 3)
     torch.cuda.synchronize()
     assert ops.launch_counts == {name: 1 for name in ops.KERNELS}
+
+
+def _span_runs(rng, q, slots, n, short=False):
+    """Runs over n rows whose takes reach ``slots`` (several spans of
+    ``ops.FUSED_SPAN`` slots); with ``short``, query 0 takes fewer, so its
+    tail slots are NEG at position -1."""
+    cum, starts, total = make_runs(rng, q, slots // 4 + 200, n)
+    assert total >= slots
+    if short:
+        cum[0] //= 3
+    return cum, starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("q,slots,d,kprime,short", [
+    (3, 3 * ops.FUSED_SPAN + 123, 150, None, False),  # ragged last span
+    (2, ops.FUSED_SPAN + 1000, 33, "total", False),   # k' = total, odd d
+    (1, 5000, 150, None, True),              # Q = 1, takes below total
+    (65, 4500, 16, 64, True),                # Q = 65
+])
+def test_fused_query_span_kernel_equals_plain(cuda_device, quantized, q,
+                                              slots, d, kprime, short):
+    """Small-integer rows give exact f32 dots and ties everywhere, also at
+    span boundaries: the f32 build must pick the plain version's positions
+    slot for slot; the int8 build (dequantized rows, sums in another order)
+    agrees tie-aware."""
+    rng = np.random.default_rng(140 + q)
+    n, k = 20000, 10
+    items = rng.integers(-2, 3, (n, d)).astype(np.float32)
+    queries = rng.integers(-2, 3, (q, d)).astype(np.float32)
+    cum, starts = _span_runs(rng, q, slots, n, short)
+    total = slots
+    dev = cuda_device
+    items_t, queries_t = (torch.as_tensor(a, device=dev)
+                          for a in (items, queries))
+    cum_t, starts_t = (torch.as_tensor(a, device=dev) for a in (cum, starts))
+    kw = {"kprime": total if kprime == "total" else kprime}
+    if quantized:
+        payload, scale = quantize_payload(items_t)
+        kw.update(payload=payload, scale=scale)
+    gv, gp = ops.fused_query(queries_t, cum_t, starts_t, items_t, total, k,
+                             impl="cuda", **kw)
+    wv, wp = ops.fused_query(queries_t, cum_t, starts_t, items_t, total, k,
+                             impl="ref", **kw)
+    if quantized:
+        assert_topk_tie_aware(gp.cpu().numpy(), gv.cpu().numpy(),
+                              wp.cpu().numpy(), wv.cpu().numpy())
+    else:
+        assert torch.equal(gp, wp) and torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,d,k,offset", [
+    (8, 20000, 3, 10, 0),        # odd d: 4-byte copies; N not whole tiles
+    (5, 20000, 150, 256, 0),     # the largest k
+    (9, 4099, 150, 7, 1),        # a view 4 bytes off the pair alignment
+    (4, 300000, 8, 10, 0),       # each block walks several item tiles
+])
+def test_mips_topk_kernel_exact_ties_across_blocks(cuda_device, q, n, d, k,
+                                                   offset):
+    """Small-integer rows, the first 300 copied to the end of the matrix
+    (other item blocks): equal scores must go to the lower id, id for id."""
+    rng = np.random.default_rng(150 + d)
+    items = rng.integers(-2, 3, (n, d)).astype(np.float32)
+    items[n - 300:] = items[:300]
+    queries = rng.integers(-2, 3, (q, d)).astype(np.float32)
+    flat = torch.zeros(n * d + offset, device=cuda_device)
+    flat[offset:] = torch.as_tensor(items.ravel(), device=cuda_device)
+    items_t = flat[offset:].view(n, d)
+    queries_t = torch.as_tensor(queries, device=cuda_device)
+    gv, gi = ops.mips_topk(queries_t, items_t, k, impl="cuda")
+    wv, wi = ops.mips_topk(queries_t, items_t, k, impl="ref")
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+def test_launch_shapes_count_each_shape(cuda_device):
+    ops.reset_launch_counts()
+    x = torch.randn((64, 16), device=cuda_device)
+    A = torch.randn((16, 27), device=cuda_device)
+    ops.hash_encode(x, A)
+    ops.hash_encode(x[:8], A)
+    ops.hash_encode(x[8:16], A)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["hash_encode"] == 3
+    assert ops.launch_shapes[("hash_encode", (64, 16, 27, 1))] == 1
+    assert ops.launch_shapes[("hash_encode", (8, 16, 27, 1))] == 2
+    assert ops.last_shape["hash_encode"] == (8, 16, 27, 1)

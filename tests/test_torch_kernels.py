@@ -368,3 +368,180 @@ def test_auto_on_cpu_runs_plain_versions_and_launches_nothing():
     rv, ri = ref.mips_topk_ref(x[:3], x, 4)
     assert torch.equal(mi, ri) and torch.equal(mv, rv)
     assert ops.launch_counts == {name: 0 for name in ops.KERNELS}
+
+
+# -- the CUDA kernels' launch plans and selection designs ---------------------
+#
+# fused_query.cu and mips_topk.cu split the selection across blocks and
+# merge the blocks' lists in a second launch. The models below run that
+# split-then-merge in plain torch, with the kernels' order rules, and must
+# equal the plain versions exactly: the merges are the designs' correctness
+# argument, and the card tests hold the kernels to the same outputs.
+
+
+def test_fused_query_plan_sizes_spans_and_scratch():
+    span = ops.FUSED_SPAN
+    plan = ops.fused_query_plan(64, 73136, 150, 40)
+    assert plan.nspan == -(-73136 // span) and plan.kb == 40
+    assert plan.lists == (64, plan.nspan, 40)
+    assert plan.counts == (64, plan.nspan)
+    assert 64 * plan.nspan > 1000           # enough blocks for 132 SMs
+    one = ops.fused_query_plan(1, 2 * span, 4, span + 1000)
+    assert (one.nspan, one.kb) == (2, span)    # a list never outgrows a span
+    assert ops.fused_query_plan(3, span + 1, 4, 4).nspan == 2
+    assert plan.span_smem == 4 * (2 * (span + span // 32) + 3 * 40)
+    assert plan.group == plan.nspan            # every list staged at once
+    assert plan.merge_smem == 4 * (6 * 40 + (3 * 40 + 1) * plan.nspan)
+    assert one.group == 1
+
+
+@pytest.mark.parametrize("d,kprime", [(ops.FUSED_MAX_D + 1, 40),
+                                      (150, 20000)])
+def test_fused_query_plan_guard_raises_value_error(d, kprime):
+    with pytest.raises(ValueError, match="fused_query: d="):
+        ops.fused_query_plan(4, 30000, d, kprime)
+
+
+@pytest.mark.parametrize("q,n,bps,sms", [(64, 2341909, 4, 132),
+                                         (70, 3001, 3, 132), (1, 5, 4, 1),
+                                         (200, 1000, 1, 2)])
+def test_mips_topk_plan_covers_the_items_in_whole_tiles(q, n, bps, sms):
+    per_block, nblk = ops.mips_topk_plan(q, n, bps, sms)
+    assert per_block % ops.MIPS_ITEM_TILE == 0
+    assert (nblk - 1) * per_block < n <= nblk * per_block
+    qtiles = -(-q // ops.MIPS_QUERY_TILE)
+    assert nblk <= max(1, bps * sms // qtiles)
+
+
+def _better(a, b):
+    """(score desc, id asc): a = (score, id) comes before b."""
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _merge_sorted(run, inc, width):
+    """The fused merge kernel's step: each entry's place is its index plus
+    the count of entries of the other list that beat it."""
+    out = [None] * width
+    for own, other in ((run, inc), (inc, run)):
+        for i, e in enumerate(own):
+            rank = i + sum(_better(o, e) for o in other)
+            if rank < width:
+                out[rank] = e
+    return [e for e in out if e is not None]
+
+
+def _span_top(scores, slots, kb):
+    """The span kernel's selection: every key above the kb-th largest, then
+    the lowest slots equal to it (-0 keyed as +0), sorted by rank."""
+    s = torch.where(scores == 0, torch.zeros_like(scores), scores)
+    cut = torch.sort(s, descending=True).values[kb - 1]
+    gt = [(float(v), int(p)) for v, p in zip(s, slots) if v > cut]
+    eq = [(float(v), int(p)) for v, p in zip(s, slots) if v == cut]
+    picked = gt + eq[:kb - len(gt)]
+    return sorted(picked, key=lambda e: (-e[0], e[1]))
+
+
+def _split_merge_fused(queries, cum, starts, items, total, k, kprime, span,
+                       payload=None, scale=None):
+    """fused_query.cu's design in plain torch: per-span top-k' lists of
+    (phase-1 score, slot), merged two sorted lists at a time, rescored on
+    the f32 rows, ordered by (rescored desc, survivor index asc)."""
+    if payload is None:
+        payload, scale = items, torch.ones((items.shape[0], 1))
+    pos = ref.bucket_gather_ref(cum, starts, total)
+    vals, out = [], []
+    for q in range(queries.shape[0]):
+        tot = min(int(cum[q, -1]), total)
+        rows = payload[pos[q, :tot].long()].float() * scale[pos[q, :tot]
+                                                            .long()]
+        s1 = torch.einsum("d,pd->p", queries[q], rows)
+        run = []
+        for p0 in range(0, tot, span):
+            n = min(span, tot - p0)
+            lst = _span_top(s1[p0:p0 + n], range(p0, p0 + n), min(kprime, n))
+            run = _merge_sorted(run, lst, kprime)
+        surv = [int(pos[q, p]) for _, p in run]
+        surv += [-1] * (kprime - len(surv))
+        resc = torch.full((kprime,), ref.NEG)
+        ok = torch.tensor(surv) >= 0
+        resc[ok] = torch.einsum("d,pd->p", queries[q],
+                                items[torch.tensor(surv)[ok].long()])
+        order = torch.sort(resc, descending=True, stable=True).indices[:k]
+        vals.append(resc[order])
+        out.append(torch.tensor(surv)[order])
+    return torch.stack(vals), torch.stack(out).to(torch.int32)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("span,kprime", [(7, 12), (16, 5), (5, 40),
+                                         (32, 8)])
+def test_split_merge_selection_equals_fused_query_ref(span, kprime,
+                                                      quantized):
+    """Random runs, rows with planted duplicates (exact phase-1 ties, some
+    across span boundaries), one query whose takes stop short of total;
+    k = k' so every survivor, ties at a span's cut included, is compared."""
+    rng = np.random.default_rng(120 + span)
+    n, d, q, k = 300, 4, 5, kprime
+    items = rng.integers(-1, 2, (n, d)).astype(np.float32)
+    items[rng.integers(0, n, 60)] = items[rng.integers(0, n, 60)]
+    queries = rng.integers(-1, 2, (q, d)).astype(np.float32)
+    cum, starts, _ = make_runs(rng, q, 20, n)
+    cum[0] //= 8                  # query 0 ends early: NEG survivors at -1
+    total = int(cum[1:, -1].min())
+    cum, starts, items, queries = t(cum), t(starts), t(items), t(queries)
+    kw = {}
+    if quantized:
+        pay = rng.integers(-127, 128, (n, d)).astype(np.int8)
+        kw = {"payload": t(pay), "scale": t(np.full((n, 1), 0.5, np.float32))}
+    wv, wp = ref.fused_query_ref(queries, cum, starts, items, total, k,
+                                 kprime=kprime, **kw)
+    gv, gp = _split_merge_fused(queries, cum, starts, items, total, k,
+                                kprime, span, **kw)
+    assert int(cum[0, -1]) < total
+    assert torch.equal(gp, wp) and torch.equal(gv, wv)
+
+
+def _chunked_mips_topk(scores, k, per_block, tile=128, seed=0):
+    """mips_topk.cu's design: each item chunk keeps a running sorted top-k
+    fed tile by tile (a tile's candidates are the scores that beat the
+    list's last entry as the tile starts, or all while the list is not
+    full, inserted in an arbitrary order); a second pass takes the k best
+    of the chunks' lists."""
+    rng = np.random.default_rng(seed)
+    nq, n = scores.shape
+    vals, ids = [], []
+    for q in range(nq):
+        lists = []
+        for b0 in range(0, n, per_block):
+            lst = []
+            for t0 in range(b0, min(n, b0 + per_block), tile):
+                full = len(lst) == k
+                last = lst[-1] if full else None
+                cand = [(float(scores[q, i]), i)
+                        for i in range(t0, min(n, b0 + per_block, t0 + tile))]
+                cand = [e for e in cand if not full or _better(e, last)]
+                for j in rng.permutation(len(cand)):
+                    e = cand[j]
+                    if len(lst) == k and not _better(e, lst[-1]):
+                        continue
+                    lst = sorted(lst + [e], key=lambda x: (-x[0], x[1]))[:k]
+            lists.append(lst)
+        merged = sorted((e for lst in lists for e in lst),
+                        key=lambda x: (-x[0], x[1]))[:k]
+        vals.append([v for v, _ in merged])
+        ids.append([i for _, i in merged])
+    return torch.tensor(vals), torch.tensor(ids)
+
+
+@pytest.mark.parametrize("per_block,k", [(128, 5), (256, 40), (512, 3)])
+def test_chunked_mips_topk_equals_stable_topk(per_block, k):
+    """Integer scores with many exact ties, a copy of the best rows in
+    another chunk: equal to stable_topk id for id."""
+    rng = np.random.default_rng(130 + k)
+    n = 1100                                   # not a multiple of the tile
+    scores = rng.integers(-6, 7, (3, n)).astype(np.float32)
+    scores[:, n - 10:] = scores[:, :10]        # ties across two chunks
+    scores[0, :] = 1.0                         # one row all tied
+    wv, wi = ref.stable_topk(t(scores), k)
+    gv, gi = _chunked_mips_topk(t(scores), k, per_block)
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
