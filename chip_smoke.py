@@ -42,6 +42,14 @@ Phases, each fatal on failure:
    ``launches`` are those of the path it serves (phase 2 for slice 1's
    kernels, phase 3 for bucket_match, delta_scan and mips_topk) at the
    shape the row is timed at; ``launches_all`` counts every shape.
+   ``hamming_scan`` is timed also at N rounded down to a multiple of 8
+   (every output row sector-aligned; no path launches that shape), under
+   ``hamming_scan_aligned`` inside that kernel's record. The
+   ``hamming.cu`` rows get ``ceiling_ms``, the event-timed ``fill_`` of
+   an int32 tensor of their output's shape (for the wide scans the
+   practical store ceiling, for delta_scan the launch floor), and
+   ``device_ms``, the median device time of 20 calls under
+   ``torch.profiler`` (of those it recorded).
 
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -133,29 +141,47 @@ def check_topk(name, ids, vals, ref_ids, ref_vals, queries, rows):
             int((ids != ref_ids).sum()))
 
 
+def profiled(run, reps: int = 1):
+    """``torch.profiler`` over ``reps`` calls of ``run()``, after a traced
+    warm-up call whose events are discarded: a window loses its first few
+    launches (the first three kernels of a one-call-each window, in every
+    run), and the warm-up absorbs them. Returns (profiler, wall
+    microseconds of the ``reps`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        t = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+        prof.step()
+    return prof, wall_us
+
+
 def profile_batch(label, run, top: int = 8) -> None:
     """Where one query batch (or one kernel call) spends device time: the
     device kernels with the most time under ``torch.profiler``, and the
     device busy share of the wall time (profiler overhead included)."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t)
+    prof, wall_us = profiled(run)
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", 0)
                 or getattr(e, "self_cuda_time_total", 0))
 
-    # kernel events only: an operator's row repeats its kernels' time
+    # kernel events only: an operator's row repeats its kernels' time, and
+    # the step's own row spans the whole step
     kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+                      if e.device_type == DeviceType.CUDA
+                      and not e.key.startswith("ProfilerStep")),
                      key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in kernels)
     if busy <= 0:
@@ -166,6 +192,17 @@ def profile_batch(label, run, top: int = 8) -> None:
           f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%)")
     for e in kernels[:top]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+
+
+def device_ms(call, reps: int = 20) -> float | None:
+    """Median device time (ms) of the one kernel that ``call()`` launches,
+    over the launches ``torch.profiler`` recorded out of ``reps`` calls;
+    None when it recorded none."""
+    from torch.autograd import DeviceType
+    prof, _ = profiled(call, reps)
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "_kernel" in e.name]
+    return statistics.median(times) / 1e3 if times else None
 
 
 def knuth_codes(n, w, device):
@@ -578,6 +615,7 @@ def main() -> int:
     items_csr, _, _ = fused._fused_arrays
     payload, scale = arms["fused_int8"]._fused_arrays[1:]
     n, d = x.shape
+    n8 = n - n % 8
     L, W = idx.hash_bits, idx.codes.shape[1]
     kp = max(K, min(max(4 * K, 32), total))
     # what this batch's probes need: the runs that hold slots, the live
@@ -607,7 +645,16 @@ def main() -> int:
             call=lambda impl: ops.hamming_scan(q_codes, idx.codes,
                                                impl=impl),
             bytes=4 * (BATCH * W + n * W + BATCH * n),
-            ops=2 * BATCH * n * W,
+            ops=2 * BATCH * n * W, ceiling=(BATCH, n),
+            source="src/repro_torch/kernels/csrc/hamming.cu",
+            replaces="src/repro/kernels/hamming.py:46"),
+        # every output row sector-aligned: the odd-N gap, if any, shows
+        "hamming_scan_aligned": dict(
+            call=lambda impl: ops.hamming_scan(q_codes, idx.codes[:n8],
+                                               impl=impl),
+            bytes=4 * (BATCH * W + n8 * W + BATCH * n8),
+            ops=2 * BATCH * n8 * W, ceiling=(BATCH, n8),
+            kernel="hamming_scan", probe_of="hamming_scan",
             source="src/repro_torch/kernels/csrc/hamming.cu",
             replaces="src/repro/kernels/hamming.py:46"),
         "bucket_gather": dict(
@@ -646,14 +693,14 @@ def main() -> int:
             call=lambda impl, db=db: ops.bucket_match(sq, db, hb, impl=impl),
             bytes=4 * (BATCH * W + rows_n * W + BATCH * rows_n),
             ops=2 * BATCH * rows_n * W + BATCH * rows_n,
-            kernel="bucket_match",
+            kernel="bucket_match", ceiling=(BATCH, rows_n),
             source="src/repro_torch/kernels/csrc/hamming.cu",
             replaces="src/repro/kernels/bucket_probe.py:70")
     cases["delta_scan"] = dict(
         call=lambda impl: ops.delta_scan(sq, st["d_codes"], st["d_live"], hb,
                                          impl=impl),
         bytes=4 * (BATCH * W + cap * W + BATCH * cap) + cap,
-        ops=2 * BATCH * cap * W + 2 * BATCH * cap,
+        ops=2 * BATCH * cap * W + 2 * BATCH * cap, ceiling=(BATCH, cap),
         source="src/repro_torch/kernels/csrc/hamming.cu",
         replaces="src/repro/kernels/delta_scan.py:58")
 
@@ -694,32 +741,49 @@ def main() -> int:
         lib_ms = timed(c["library"]) if "library" in c else None
         cold_ms = (timed_cold(lambda: c["call"]("cuda"), flush)
                    if c.get("cold") else None)
+        ceil_ms = dev_ms = None
+        if "ceiling" in c:
+            fill = torch.empty(c["ceiling"], dtype=torch.int32, device=dev)
+            ceil_ms = timed(lambda: fill.fill_(7))
+            del fill
+            dev_ms = device_ms(lambda: c["call"]("cuda"))
         t_bytes, t_ops = c["bytes"] / PEAK_BYTES, c["ops"] / PEAK_OPS
         streaming = kernel in ("bucket_match", "delta_scan", "mips_topk")
         runs = stream_launches if streaming else launches
         at_shape = (stream_shapes if streaming else shapes).get(
             (kernel, shape), 0)
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": c["source"],
             "replaces": c["replaces"], "launches": at_shape,
             "launches_all": runs[kernel], "shape": list(shape),
             "max_abs_err": err, "ms": k_ms, "ms_cold": cold_ms,
-            "plain_ms": p_ms,
+            "device_ms": dev_ms, "ceiling_ms": ceil_ms, "plain_ms": p_ms,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "parity": "ok"})
+            "library_ms": lib_ms, "parity": "ok"}
+        if "probe_of" in c:       # a probe shape goes inside its row
+            owner = next(r for r in rows if r["name"] == c["probe_of"])
+            owner[name] = {k: row[k] for k in (
+                "shape", "max_abs_err", "ms", "device_ms", "ceiling_ms",
+                "plain_ms", "bound_ms")}
+        else:
+            rows.append(row)
         lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
         lib += "" if cold_ms is None else f", cold {cold_ms:.4f} ms"
+        lib += "" if ceil_ms is None else f", fill_ {ceil_ms:.4f} ms"
+        lib += ("" if "ceiling" not in c else ", device " + (
+            "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"))
         print(f"kernel: {name} {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound "
-              f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}), "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
               f"{c['bytes']} bytes, {c['ops']} ops, max err {err}, "
               f"tied swaps {swaps}, launches {at_shape} at {shape} "
               f"({runs[kernel]} in all)")
-    # device time of each launch inside the two-launch kernels
-    redesigned = ("fused_query", "fused_query_int8", "mips_topk")
+    # device time of each launch of the redesigned kernels
+    redesigned = ("hamming_scan", "delta_scan", "fused_query",
+                  "fused_query_int8", "mips_topk")
     profile_batch("one call each of " + ", ".join(redesigned),
                   lambda: [cases[n]["call"]("cuda") for n in redesigned],
-                  top=6)
+                  top=8)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -97,9 +97,19 @@ def _require(op: str, t: torch.Tensor, name: str, dtype) -> torch.Tensor:
     return t.contiguous()
 
 
+def _current_stream() -> int:
+    """The current device's CUDA stream handle. torch's raw-stream getter
+    skips building a Stream object (8 us a call on the H100's host, a
+    quarter of a small scan's wrapper); a torch without it gets the public
+    call."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream().cuda_stream
+    return raw(torch.cuda.current_device())
+
+
 def _launch(kernel: str, entry: str, *args, shape: Tuple[int, ...]) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _build.function(entry)(*args, stream)
+    err = _build.function(entry)(*args, _current_stream())
     if err:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
     launch_counts[kernel] += 1
@@ -140,11 +150,13 @@ def hash_encode(x: torch.Tensor, A: torch.Tensor,
 
 def _check_packed(op: str, q_codes: torch.Tensor, db_codes: torch.Tensor,
                   rows: str, what: str) -> None:
-    _require_nonempty(op, Q=q_codes.shape[0], **{rows: db_codes.shape[0]},
-                      W=q_codes.shape[1])
-    if q_codes.shape[1] != db_codes.shape[1]:
-        raise ValueError(f"{op}: query codes have {q_codes.shape[1]} "
-                         f"words, {what} {db_codes.shape[1]}")
+    Q, W = q_codes.shape[0], q_codes.shape[1]
+    R = db_codes.shape[0]
+    if min(Q, R, W) <= 0:
+        _require_nonempty(op, Q=Q, **{rows: R}, W=W)
+    if W != db_codes.shape[1]:
+        raise ValueError(f"{op}: query codes have {W} words, {what} "
+                         f"{db_codes.shape[1]}")
 
 
 def _packed_scan(op: str, entry: str, q_codes: torch.Tensor,
@@ -157,10 +169,7 @@ def _packed_scan(op: str, entry: str, q_codes: torch.Tensor,
     db = _require(op, db_codes, "db_codes", torch.int32)
     Q, W = q.shape
     N = db.shape[0]
-    if 64 * W * 4 > _SMEM_LIMIT:
-        raise ValueError(f"{op}: W={W} words do not fit the kernel's "
-                         f"shared-memory query tile")
-    out = torch.empty((Q, N), dtype=torch.int32, device=q.device)
+    out = q.new_empty((Q, N))
     ptrs = [q.data_ptr(), db.data_ptr()]
     if live is not None:
         ptrs.append(live.data_ptr())
@@ -205,9 +214,12 @@ def delta_scan(q_codes: torch.Tensor, delta_codes: torch.Tensor,
     impl = _resolve(impl, "delta_scan", q_codes, delta_codes, live)
     if impl == "ref":
         return _ref.delta_scan_ref(q_codes, delta_codes, live, hash_bits)
+    # the kernel reads one byte a slot, nonzero = live: a bool or uint8
+    # tensor goes as it is, any other dtype is converted here
+    if live.dtype not in (torch.bool, torch.uint8):
+        live = live != 0
     return _packed_scan("delta_scan", "delta_scan", q_codes, delta_codes,
-                        hash_bits=hash_bits,
-                        live=(live != 0).contiguous())   # one byte a slot
+                        hash_bits=hash_bits, live=live.contiguous())
 
 
 def mips_topk(queries: torch.Tensor, items: torch.Tensor, k: int, *,

@@ -80,21 +80,59 @@ def _words(rng, n, w, device):
     return torch.as_tensor(u.astype(np.uint32).view(np.int32), device=device)
 
 
+# every row alignment N = r mod 8, below one 1,024-item wide tile and a few
+# tiles plus a remainder, over one, two and three query groups
+_ALIGNMENT_CASES = [(q, n, w) for r in range(8)
+                    for q, w in [(1, 1), (63, 2), (64, 1), (65, 3), (130, 8)]
+                    for n in (8 * 37 + r, 3 * 1024 + 8 * 5 + r)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,n,w", [(64, 1024, 1), (3, 70, 2), (65, 1031, 3)])
+@pytest.mark.parametrize("q,n,w", [(64, 1024, 1), (3, 70, 2), (65, 1031, 3)]
+                         + _ALIGNMENT_CASES)
 def test_bucket_match_and_delta_scan_kernels_equal_plain(cuda_device, q, n,
                                                          w):
+    """hamming.cu's wide kernel (hamming_scan, bucket_match) and narrow
+    kernel (delta_scan), words with bit 31 set; live as bool, uint8 and
+    int32."""
     rng = np.random.default_rng(70 + n)
     qc, db = _words(rng, q, w, cuda_device), _words(rng, n, w, cuda_device)
     hash_bits = 32 * w - 5
+    assert torch.equal(ops.hamming_scan(qc, db, impl="cuda"),
+                       ops.hamming_scan(qc, db, impl="ref"))
     assert torch.equal(ops.bucket_match(qc, db, hash_bits, impl="cuda"),
                        ops.bucket_match(qc, db, hash_bits, impl="ref"))
     live = torch.as_tensor(rng.random(n) < 0.6, device=cuda_device)
-    got = ops.delta_scan(qc, db, live, hash_bits, impl="cuda")
-    assert torch.equal(got, ops.delta_scan(qc, db, live, hash_bits,
-                                           impl="ref"))
-    assert bool((got[:, ~live] == -1).all())
-    assert bool((got[:, live] >= 0).all())
+    # a live slot holds the match count, which is negative where the
+    # distance exceeds hash_bits (random words use all 32 bits a word)
+    match = ops.bucket_match(qc, db, hash_bits, impl="ref")
+    for lv in (live, live.to(torch.uint8), 7 * live.to(torch.int32)):
+        got = ops.delta_scan(qc, db, lv, hash_bits, impl="cuda")
+        assert torch.equal(got, ops.delta_scan(qc, db, lv, hash_bits,
+                                               impl="ref"))
+        assert bool((got[:, ~live] == -1).all())
+        assert torch.equal(got[:, live], match[:, live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,w", [(3, 5, 1), (5, 3, 2), (65, 7, 1),
+                                   (2, 1, 8), (5, 8, 1), (65, 9, 2),
+                                   (3, 15, 8), (7, 301, 9), (66, 2053, 12)])
+def test_packed_scans_equal_plain_at_short_rows_and_wide_codes(
+        cuda_device, q, n, w):
+    """Rows of 7 items or fewer and W > 8 words (the narrow kernel serves
+    every scan), and the shortest rows the wide kernel takes (a block's
+    span ends in the next row)."""
+    rng = np.random.default_rng(230 + n + w)
+    qc, db = _words(rng, q, w, cuda_device), _words(rng, n, w, cuda_device)
+    hash_bits = 32 * w - 3
+    assert torch.equal(ops.hamming_scan(qc, db, impl="cuda"),
+                       ops.hamming_scan(qc, db, impl="ref"))
+    assert torch.equal(ops.bucket_match(qc, db, hash_bits, impl="cuda"),
+                       ops.bucket_match(qc, db, hash_bits, impl="ref"))
+    live = torch.as_tensor(rng.random(n) < 0.5, device=cuda_device)
+    assert torch.equal(ops.delta_scan(qc, db, live, hash_bits, impl="cuda"),
+                       ops.delta_scan(qc, db, live, hash_bits, impl="ref"))
 
 
 @pytest.mark.cuda

@@ -211,12 +211,122 @@ def test_bucket_match_and_delta_scan_match_pallas(q, c, w):
     got = ops.bucket_match(t(u32_to_i32(qc)), t(u32_to_i32(dc)), hash_bits,
                            impl="ref")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    want = jops.delta_scan(jnp.asarray(qc), jnp.asarray(dc),
-                           jnp.asarray(live), hash_bits, impl="pallas")
-    got = ops.delta_scan(t(u32_to_i32(qc)), t(u32_to_i32(dc)), t(live),
-                         hash_bits, impl="ref")
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert (got.numpy()[:, ~live] == -1).all()
+    # live as bool, uint8 and int32 (nonzero = live), each held to the
+    # Pallas kernel given the same array
+    for dtype in (np.bool_, np.uint8, np.int32):
+        lv = (live.astype(dtype) if dtype == np.bool_
+              else live.astype(dtype) * 3)
+        want = jops.delta_scan(jnp.asarray(qc), jnp.asarray(dc),
+                               jnp.asarray(lv), hash_bits, impl="pallas")
+        got = ops.delta_scan(t(u32_to_i32(qc)), t(u32_to_i32(dc)), t(lv),
+                             hash_bits, impl="auto")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert (got.numpy()[:, ~live] == -1).all()
+
+
+# hamming.cu's wide kernel geometry: kThreads, kIPT, kQB
+WIDE_THREADS, WIDE_IPT, WIDE_QB = 256, 4, 64
+
+
+def _wide_scan_model(q_codes, db_codes, threads, ipt, qb):
+    """hamming.cu's wide_scan_kernel in numpy: block (x, y) owns, in each
+    of its rows q, the flat outputs [align8(qN + n0), align8(qN + n1))
+    (the last row clipped at QN); thread p reads its items n0 + p + i,
+    i < ipt + 7, into registers and takes register s_q + j for output j
+    of row q; past the row's end, output f belongs to row q + 1 and item
+    m = f - qN - N < 7 (staged codes). Rows of 7 items or fewer go to the
+    narrow kernel, so N > 7 here.
+    Returns (distances, writes per output, writing block per output, the
+    first flat output of every 16-byte store)."""
+    Q, W = q_codes.shape
+    N = db_codes.shape[0]
+    assert N > 7
+    tile, total = threads * ipt, Q * N
+    out = np.zeros(total, np.int64)
+    writes = np.zeros(total, np.int64)
+    owner = np.full(total, -1, np.int64)
+    vector_starts = []
+
+    def dist(rows, items):
+        x = q_codes[rows] ^ db_codes[items]
+        return np.unpackbits(x.view(np.uint8), axis=-1).sum(-1)
+
+    def align8(x):
+        return (x + 7) // 8 * 8
+
+    p = np.arange(threads)[:, None] * ipt
+    j = np.arange(ipt)[None, :]
+    for x in range(-(-N // tile)):
+        n0, n1 = x * tile, min(N, (x + 1) * tile)
+        staged = n0 + p + np.arange(ipt + 7)[None, :]    # register items
+        for y in range(-(-Q // qb)):
+            for q in range(y * qb, min(Q, (y + 1) * qb)):
+                row = q * N
+                lo, hi = align8(row + n0), min(align8(row + n1), total)
+                s = lo - row - n0
+                assert 0 <= s <= 7
+                f = lo + p + j
+                own = f < hi
+                n = f - row
+                fast = own & (n < N)
+                # register s + j holds item n0 + p + s + j: the output's own
+                assert (staged[:, s:s + ipt][fast] == n[fast]).all()
+                assert (n[fast] < min(N, n0 + tile + 7)).all()
+                out[f[fast]] = dist(np.full(fast.sum(), q), n[fast])
+                m = n - N
+                nxt = own & ~fast
+                assert (m[nxt] <= 6).all() and (q + 1 < Q or not nxt.any())
+                out[f[nxt]] = dist(np.full(nxt.sum(), q + 1), m[nxt])
+                np.add.at(writes, f[own], 1)
+                owner[f[own]] = x * 100000 + y
+                whole = own.all(1) & (n[:, -1] < N)
+                vector_starts += [f[whole][:, k] for k in range(0, ipt, 4)]
+    starts = np.concatenate(vector_starts) if vector_starts else np.zeros(0)
+    return out.reshape(Q, N), writes, owner, starts.astype(np.int64)
+
+
+def _wide_scan_model_checked(qc, db, threads, ipt, qb):
+    """The model's distances, after checking that every output is written
+    once, every 32-byte sector by one block (the output's last, partial
+    sector included) and every 16-byte store at an aligned output."""
+    got, writes, owner, starts = _wide_scan_model(qc, db, threads, ipt, qb)
+    assert (writes == 1).all()
+    assert (starts % 4 == 0).all()
+    pad = (-owner.size) % 8
+    sectors = np.concatenate([owner, np.full(pad, -1)]).reshape(-1, 8)
+    assert ((sectors == sectors[:, :1]) | (sectors == -1)).all()
+    return got
+
+
+@pytest.mark.parametrize("w", range(1, 9))
+@pytest.mark.parametrize("r", range(8))
+def test_wide_scan_plan_owns_whole_sectors(r, w):
+    """For N = r mod 8 (below one tile, one and two tiles plus a
+    remainder), odd Q over up to four query groups and W words: every
+    output is written once, no 32-byte sector by two blocks, every
+    16-byte store is aligned, and the model's values equal hamming_ref
+    (words with bit 31 set)."""
+    rng = np.random.default_rng(160 + 8 * r + w)
+    threads, ipt, qb = 4, 4, 2                  # 16-item tiles
+    for N in (8 + r, 24 + r, 40 + r):
+        for Q in (1, 3, 7):
+            qc, db = _top_bit_codes(rng, Q, w), _top_bit_codes(rng, N, w)
+            got = _wide_scan_model_checked(qc, db, threads, ipt, qb)
+            want = ref.hamming_ref(t(u32_to_i32(qc)), t(u32_to_i32(db)))
+            np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("r", [0, 5, 7])
+def test_wide_scan_plan_at_the_kernel_geometry(r):
+    """The kernel's own tile and query group: 65 rows (two groups) over a
+    few tiles plus a remainder, N = r mod 8 (the path's item counts are
+    5 and 7 mod 8, the directory's 0)."""
+    rng = np.random.default_rng(170 + r)
+    N, Q = 3 * WIDE_THREADS * WIDE_IPT + 16 + r, WIDE_QB + 1
+    qc, db = _top_bit_codes(rng, Q, 1), _top_bit_codes(rng, N, 1)
+    got = _wide_scan_model_checked(qc, db, WIDE_THREADS, WIDE_IPT, WIDE_QB)
+    want = ref.hamming_ref(t(u32_to_i32(qc)), t(u32_to_i32(db)))
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 def test_packed_scan_probes_match_pallas():
