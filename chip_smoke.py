@@ -38,18 +38,27 @@ Phases, each fatal on failure:
    each launch timed alone after a 256 MiB write that flushes the 50 MB
    L2. A kernel's bound counts each input byte it needs once (for the
    fused query: each probed row once, however many queries of the batch
-   probe it) and the operations this run's inputs need. A row's
-   ``launches`` are those of the path it serves (phase 2 for slice 1's
-   kernels, phase 3 for bucket_match, delta_scan and mips_topk) at the
-   shape the row is timed at; ``launches_all`` counts every shape.
+   probe it) and the operations this run's inputs need, over 67 TOP/s,
+   or for hash_encode, whose multiplies and adds are rounded apart (no
+   FMA), over half that (``op_rate``). A row's ``launches`` are those of
+   the path it serves (phase 2 for slice 1's kernels, phase 3 for
+   bucket_match, delta_scan, mips_topk and ``bucket_gather_stream``) at
+   the shape the row is timed at; ``launches_all`` counts every shape.
    ``hamming_scan`` is timed also at N rounded down to a multiple of 8
    (every output row sector-aligned; no path launches that shape), under
-   ``hamming_scan_aligned`` inside that kernel's record. The
-   ``hamming.cu`` rows get ``ceiling_ms``, the event-timed ``fill_`` of
-   an int32 tensor of their output's shape (for the wide scans the
-   practical store ceiling, for delta_scan the launch floor), and
-   ``device_ms``, the median device time of 20 calls under
-   ``torch.profiler`` (of those it recorded).
+   ``hamming_scan_aligned`` inside that kernel's record, and
+   ``hash_encode`` at a 64-query batch (``hash_encode_query``, the shape
+   of most of its launches) inside its record. ``bucket_gather_stream``
+   is the gather of the streaming bucket arm, its runs built as that
+   arm builds them at phase 3's final state. The ``hamming.cu`` and
+   ``bucket_gather`` rows get ``ceiling_ms``, the event-timed ``fill_``
+   of an int32 tensor of their output's shape (for the wide outputs the
+   practical store ceiling, for delta_scan the launch floor); those rows
+   and ``hash_encode`` get ``device_ms``, the median device time of 20
+   calls under ``torch.profiler`` (of those it recorded). Lines headed
+   ``yardstick:`` time one PyTorch call that computes part of a kernel's
+   function (``torch.searchsorted`` for the run index, ``x @ A`` for the
+   projection); they are not library pairs.
 
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -71,6 +80,9 @@ SRC = Path(__file__).resolve().parent / "src"
 
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_OPS = 67e12          # H100 SXM f32 outside the tensor cores, op/s
+# hash_encode rounds each multiply and add on its own (no FMA): two f32
+# instructions a term, at half the FMA-counted rate
+PEAK_OPS_NO_FMA = PEAK_OPS / 2
 ATOL, RTOL = 1e-4, 1e-5   # f32 dots of 150 terms summed in another order
 N_ITEMS = 2340373         # ImageNet, Yan et al. 2018 section 6
 DIM = 150
@@ -194,15 +206,28 @@ def profile_batch(label, run, top: int = 8) -> None:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
 
 
-def device_ms(call, reps: int = 20) -> float | None:
-    """Median device time (ms) of the one kernel that ``call()`` launches,
-    over the launches ``torch.profiler`` recorded out of ``reps`` calls;
-    None when it recorded none."""
+def device_ms(call, reps: int = 20, names=("_kernel",)) -> float | None:
+    """Device time (ms) of one ``call()``: for each kernel it launches
+    (device events whose name holds one of ``names``), the median over the
+    launches ``torch.profiler`` recorded out of ``reps`` calls, summed over
+    the kernels; None when it recorded none of one."""
     from torch.autograd import DeviceType
     prof, _ = profiled(call, reps)
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "_kernel" in e.name]
-    return statistics.median(times) / 1e3 if times else None
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = 0.0
+    for name in names:
+        times = [e.time_range.elapsed_us() for e in events if name in e.name]
+        if not times:
+            return None
+        total += statistics.median(times)
+    return total / 1e3
+
+
+def held_runs(cum, num_probe: int) -> int:
+    """Runs over all queries that hold a probe slot below ``num_probe``:
+    the (cum, starts) entries a gather must read."""
+    return int(((cum[:, 1:] > cum[:, :-1]) & (cum[:, :-1] < num_probe))
+               .sum())
 
 
 def knuth_codes(n, w, device):
@@ -344,6 +369,7 @@ def streaming_phase(idx, ops, dev):
     from repro_torch import streaming
     from repro_torch.core import planner
     from repro_torch.data.synthetic import make_dataset
+    from repro_torch.streaming.engine import bucket_runs
 
     traffic = make_dataset("imagenet", SEED + 7, n=ROUNDS * INSERTS, d=DIM,
                            num_queries=ROUNDS * BATCH)
@@ -442,14 +468,23 @@ def streaming_phase(idx, ops, dev):
     profile_batch(f"streaming (auto arm) batch of {BATCH}", lambda: mi.query(
         traffic.queries[:BATCH], K, recall_target=RECALL_TARGET), top=12)
 
-    # the kernels' inputs at this state, for phase 4
+    # the kernels' inputs at this state, for phase 4; the bucket arm's
+    # gather runs as its recall-target query builds them
     qb = traffic.queries[:BATCH]
     live_vecs, _ = mi.live_vectors()
-    inputs = dict(q_codes=mi.encode_queries(qb), queries=qb,
+    q_codes = mi.encode_queries(qb)
+    n_csr = mi.num_csr_items
+    probe_base = min(n_csr, min(width, n_csr + mi.delta.capacity)
+                     + mi.max_tombstones)
+    _, g_cum, g_starts = bucket_runs(mi._arrs(), q_codes, probe_base,
+                                     mi.hash_bits, "auto")
+    inputs = dict(q_codes=q_codes, queries=qb,
                   bucket_code=mi.buckets.bucket_code.clone(),
                   csr_codes=mi.csr_codes.clone(),
                   d_codes=mi.delta.codes.clone(), d_live=mi.delta.live.clone(),
-                  live_vecs=live_vecs, hash_bits=mi.hash_bits)
+                  live_vecs=live_vecs, hash_bits=mi.hash_bits,
+                  gather_cum=g_cum, gather_starts=g_starts,
+                  probe_base=probe_base)
 
     # merged candidates against a from-scratch rebuild, both arms
     def match_fn(q_codes, codes):
@@ -487,7 +522,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.core import planner, topk
+    from repro_torch.core import hashing, planner, topk
     from repro_torch.core.engine import (QueryEngine, _directory_order,
                                          _planned_runs, engine_for)
     from repro_torch.core.index import IndexSpec, build
@@ -621,7 +656,7 @@ def main() -> int:
     # what this batch's probes need: the runs that hold slots, the live
     # slots, the distinct rows they touch, and the k' survivors of each
     # phase 1 (their distinct f32 rows for the int8 rescore)
-    runs = int((cum[:, 1:] > cum[:, :-1]).sum())
+    runs = held_runs(cum, total)
     live = (torch.arange(total, device=dev)[None] < cum[:, -1:])
     slots = int(live.sum())
     probed = ops.bucket_gather(cum, starts, total, impl="ref")
@@ -634,11 +669,25 @@ def main() -> int:
     surv, _ = survivors()
     surv8, surv8_rows = survivors(payload=payload, scale=scale)
     fused_io = 4 * BATCH * d + 8 * runs + 8 * BATCH * K
+    qn = hashing.normalize(qb)
+    q_zeros = torch.zeros((BATCH,), device=dev)
     cases = {
+        # each term one multiply and one add, rounded apart (no FMA)
         "hash_encode": dict(
             call=lambda impl: ops.hash_encode(x, A, tail, a_tail, impl=impl),
             bytes=4 * (n * d + d * L + n + L + n * W),
-            ops=2 * n * d * L + 2 * n * L,
+            ops=2 * n * d * L + 2 * n * L, op_rate=PEAK_OPS_NO_FMA,
+            device=("hash_encode_kernel",),
+            source="src/repro_torch/kernels/csrc/hash_encode.cu",
+            replaces="src/repro/kernels/hash_encode.py:83"),
+        # a query batch's encode, the shape of 97 of the path's launches
+        "hash_encode_query": dict(
+            call=lambda impl: ops.hash_encode(qn, A, q_zeros, a_tail,
+                                              impl=impl),
+            bytes=4 * (BATCH * d + d * L + BATCH + L + BATCH * W),
+            ops=2 * BATCH * d * L + 2 * BATCH * L, op_rate=PEAK_OPS_NO_FMA,
+            device=("hash_encode_kernel",), kernel="hash_encode",
+            probe_of="hash_encode",
             source="src/repro_torch/kernels/csrc/hash_encode.cu",
             replaces="src/repro/kernels/hash_encode.py:83"),
         "hamming_scan": dict(
@@ -661,7 +710,8 @@ def main() -> int:
             call=lambda impl: ops.bucket_gather(cum, starts, total,
                                                 impl=impl),
             bytes=4 * (2 * runs + BATCH * total),
-            ops=2 * slots,
+            ops=2 * slots, ceiling=(BATCH, total),
+            device=("bucket_gather_kernel",),
             source="src/repro_torch/kernels/csrc/bucket_gather.cu",
             replaces="src/repro/kernels/bucket_probe.py:124"),
         # f32 phase 1: the payload is the rescore rows, with unit scales
@@ -696,6 +746,18 @@ def main() -> int:
             kernel="bucket_match", ceiling=(BATCH, rows_n),
             source="src/repro_torch/kernels/csrc/hamming.cu",
             replaces="src/repro/kernels/bucket_probe.py:70")
+    # the streaming bucket arm's gather: about one slot a run, P odd
+    g_cum, g_starts = st["gather_cum"], st["gather_starts"]
+    gp = st["probe_base"]
+    g_runs = held_runs(g_cum, gp)
+    g_slots = int(torch.clamp(g_cum[:, -1], max=gp).sum())
+    cases["bucket_gather_stream"] = dict(
+        call=lambda impl: ops.bucket_gather(g_cum, g_starts, gp, impl=impl),
+        bytes=4 * (2 * g_runs + BATCH * gp),
+        ops=2 * g_slots, ceiling=(BATCH, gp), kernel="bucket_gather",
+        device=("bucket_gather_kernel",), stream=True,
+        source="src/repro_torch/kernels/csrc/bucket_gather.cu",
+        replaces="src/repro/kernels/bucket_probe.py:124")
     cases["delta_scan"] = dict(
         call=lambda impl: ops.delta_scan(sq, st["d_codes"], st["d_live"], hb,
                                          impl=impl),
@@ -714,10 +776,27 @@ def main() -> int:
         ops=2 * BATCH * nl * d, library=library_topk,
         source="src/repro_torch/kernels/csrc/mips_topk.cu",
         replaces="src/repro/kernels/mips_topk.py:93", cold=True)
+    # yardsticks: one PyTorch call for part of a kernel's function (the
+    # run index alone, the projection alone), not a library pair
+    for label, c_, p_ in (("bucket_gather", cum, total),
+                          ("bucket_gather_stream", g_cum, gp)):
+        slot = torch.arange(p_, dtype=torch.int32, device=dev).expand(
+            BATCH, -1).contiguous()
+        body = c_[:, 1:].contiguous()
+        y_ms = timed(lambda: torch.searchsorted(body, slot, right=True))
+        print(f"yardstick: {label}: torch.searchsorted(cum[:, 1:], p, "
+              f"right=True) {y_ms:.4f} ms at {tuple(slot.shape)}")
+        del slot, body
+    for label, xx in (("hash_encode", x), ("hash_encode_query", qn)):
+        y_ms = timed(lambda: xx @ A)
+        print(f"yardstick: {label}: x @ A (TF32 off) {y_ms:.4f} ms at "
+              f"{tuple(xx.shape)} x {tuple(A.shape)}")
     print(f"kernel: streaming shapes: directory B={sb}, CSR rows {sc}, "
           f"delta capacity {cap}, live items {nl}")
     print(f"kernel: main-path batch: {slots} live probe slots over "
-          f"{probed_rows} distinct rows, {runs} runs, k'={kp}")
+          f"{probed_rows} distinct rows, {runs} runs, k'={kp}; streaming "
+          f"gather: {g_slots} live of {BATCH} x {gp} slots, {g_runs} runs "
+          f"of {g_cum.shape[1] - 1} a query")
     rows = []
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     for name, c in cases.items():
@@ -746,9 +825,14 @@ def main() -> int:
             fill = torch.empty(c["ceiling"], dtype=torch.int32, device=dev)
             ceil_ms = timed(lambda: fill.fill_(7))
             del fill
-            dev_ms = device_ms(lambda: c["call"]("cuda"))
-        t_bytes, t_ops = c["bytes"] / PEAK_BYTES, c["ops"] / PEAK_OPS
-        streaming = kernel in ("bucket_match", "delta_scan", "mips_topk")
+        profiled_row = "ceiling" in c or "device" in c
+        if profiled_row:
+            dev_ms = device_ms(lambda: c["call"]("cuda"),
+                               names=c.get("device", ("_kernel",)))
+        t_bytes = c["bytes"] / PEAK_BYTES
+        t_ops = c["ops"] / c.get("op_rate", PEAK_OPS)
+        streaming = c.get("stream", kernel in ("bucket_match", "delta_scan",
+                                               "mips_topk"))
         runs = stream_launches if streaming else launches
         at_shape = (stream_shapes if streaming else shapes).get(
             (kernel, shape), 0)
@@ -761,29 +845,34 @@ def main() -> int:
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "parity": "ok"}
+        if "op_rate" in c:
+            row["op_rate"] = "no FMA: each multiply and add alone"
         if "probe_of" in c:       # a probe shape goes inside its row
             owner = next(r for r in rows if r["name"] == c["probe_of"])
             owner[name] = {k: row[k] for k in (
-                "shape", "max_abs_err", "ms", "device_ms", "ceiling_ms",
-                "plain_ms", "bound_ms")}
+                "shape", "launches", "max_abs_err", "ms", "device_ms",
+                "ceiling_ms", "plain_ms", "bound_ms")}
         else:
             rows.append(row)
         lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
         lib += "" if cold_ms is None else f", cold {cold_ms:.4f} ms"
         lib += "" if ceil_ms is None else f", fill_ {ceil_ms:.4f} ms"
-        lib += ("" if "ceiling" not in c else ", device " + (
+        lib += ("" if not profiled_row else ", device " + (
             "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"))
+        by = row["bound_by"] + (" (no FMA)" if "op_rate" in c
+                                 and row["bound_by"] == "operations" else "")
         print(f"kernel: {name} {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{row['bound_ms']:.4f} ms ({by}), "
               f"{c['bytes']} bytes, {c['ops']} ops, max err {err}, "
               f"tied swaps {swaps}, launches {at_shape} at {shape} "
               f"({runs[kernel]} in all)")
     # device time of each launch of the redesigned kernels
-    redesigned = ("hamming_scan", "delta_scan", "fused_query",
+    redesigned = ("hash_encode", "hamming_scan", "bucket_gather",
+                  "bucket_gather_stream", "delta_scan", "fused_query",
                   "fused_query_int8", "mips_topk")
     profile_batch("one call each of " + ", ".join(redesigned),
                   lambda: [cases[n]["call"]("cuda") for n in redesigned],
-                  top=8)
+                  top=12)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

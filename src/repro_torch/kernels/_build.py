@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into ``lib<name>.so`` with a
 plain C interface, ``nvcc -gencode arch=compute_90a,code=sm_90a``, all
-sources in parallel (one ``nvcc`` each). The libraries go to
+sources in parallel (one ``nvcc`` each); headers there (``*.cuh``) are
+included by the sources and never compiled alone. The libraries go to
 ``build/repro_torch/<hash>/`` under the repository root, keyed by a hash
 of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses what it built. Nothing is built at import time: a host without
@@ -32,7 +33,7 @@ _LL = ctypes.c_longlong
 # and the stream go as c_void_p so ctypes never cuts them to 32 bits.
 SIGNATURES = {
     "hash_encode": ("hash_encode", "repro_hash_encode",
-                    [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]),
+                    [_P, _P, _P, _P, _P, _LL] + [_I] * 6 + [_P]),
     "hamming": ("hamming", "repro_hamming", [_P, _P, _P, _I, _LL, _I, _P]),
     "bucket_match": ("hamming", "repro_bucket_match",
                      [_P, _P, _P, _I, _LL, _I, _I, _P]),

@@ -17,11 +17,12 @@
 //     block owns kSpan consecutive probe slots of one query, so the main-path
 //     batch (64 x 73,136 slots) runs as 2,304 blocks. Two warps find the runs
 //     of the span's first and last slot by a 32-way warp search of cum[q]
-//     (about five dependent loads). Each thread then maps its kPer consecutive
-//     slots to runs with two binary searches inside that bracket (whose top
-//     levels the block's threads share in L1) and walks forward, searching
-//     again only past a run's end, so a block reads only the cum entries its
-//     searches visit, never all of cum. Each warp scores 8 rows at a time with
+//     (about five dependent loads; run_search.cuh). Each thread then maps
+//     its kPer consecutive slots to runs with two binary searches inside
+//     that bracket (whose top levels the block's threads share in L1) and
+//     walks forward, searching again only past a run's end, so a block reads
+//     only the cum entries its searches visit, never all of cum. Each warp
+//     scores 8 rows at a time with
 //     the query in registers: float2 loads for f32 rows (4d bytes apart,
 //     8-byte aligned for even d) and char2 for int8 rows (2-byte aligned for
 //     even d), 8 rows x ceil(d / 64) loads in flight per lane, and a
@@ -49,7 +50,12 @@
 
 #include <algorithm>
 
+#include "run_search.cuh"
+
 namespace {
+
+using runs::find_run;
+using runs::run_in;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -73,35 +79,6 @@ __device__ __forceinline__ bool better(float va, int sa, float vb, int sb) {
 __device__ __forceinline__ unsigned fkey(float v) {
   const unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// first run i in [0, S) with c[i + 1] > p (the run holding slot p), for a
-// slot below c[S]: a 32-way search, every lane probing one point a round
-__device__ int find_run(const int32_t* c, int S, int p, int lane) {
-  int lo = 0, hi = S;                       // answer in [lo, hi)
-  while (hi - lo > 32) {
-    const int step = (hi - lo + 31) / 32;
-    const int i = min(lo + (lane + 1) * step - 1, hi - 1);
-    const unsigned b = __ballot_sync(kFull, c[i + 1] > p);
-    const int L = __ffs(b) - 1;             // lane 31 probes hi - 1: true
-    const int iL = min(lo + (L + 1) * step - 1, hi - 1);
-    lo = L ? lo + L * step : lo;
-    hi = iL + 1;
-  }
-  const int i = lo + lane;
-  const unsigned b = __ballot_sync(kFull, i < hi && c[i + 1] > p);
-  return lo + __ffs(b) - 1;
-}
-
-// the run holding slot p among runs [lo, hi), for a p it is known to hold:
-// the first i there with c[i + 1] > p
-__device__ __forceinline__ int run_in(const int32_t* c, int p, int lo,
-                                      int hi) {
-  while (hi - lo > 1) {
-    const int mid = (lo + hi - 1) >> 1;
-    if (__ldg(c + mid + 1) > p) hi = mid + 1; else lo = mid + 1;
-  }
-  return lo;
 }
 
 // block-wide exclusive scan of one int per thread

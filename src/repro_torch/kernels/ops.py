@@ -22,6 +22,7 @@ kernels run on the current stream.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -47,6 +48,16 @@ _SMEM_LIMIT = 232448          # dynamic shared memory a Hopper block may use
 MIPS_MAX_K = 256
 MIPS_QUERY_TILE = 64          # queries per block of mips_topk.cu
 MIPS_ITEM_TILE = 128          # items per tile; a block's chunk is whole tiles
+
+# hash_encode.cu: a warp's slab rows per row a thread (8 row groups), the
+# rows-a-thread choices, the most and fewest warps a block (256 threads
+# stage A), and the slabs an SM should have (8 warps' worth) before a
+# thread takes more rows
+HASH_SLAB = 8
+HASH_ROWS = (1, 2, 4)
+HASH_MAX_WARPS = 16
+_HASH_MIN_WARPS = 8
+_HASH_FILL = 8
 
 # fused_query.cu: probe slots per span block (its kSpan), the widest query
 # it holds in registers (kMaxD), span-list entries its merge stages at once
@@ -125,7 +136,11 @@ def hash_encode(x: torch.Tensor, A: torch.Tensor,
     """Sign-projection encode to packed codes.
 
     x: (N, d) f32; A: (d, L) f32; optional SIMPLE-LSH fold: tail (N,),
-    a_tail (L,). Returns (N, ceil(L/32)) int32 (the uint32 bits)."""
+    a_tail (L,). Returns (N, ceil(L/32)) int32 (the uint32 bits). The
+    kernel stages A and each warp's slab of 8 or more rows of x in shared
+    memory, so it takes d <= 1452 for L <= 32 (d <= 806 for L <= 64, 557
+    for L <= 96) and raises ``ValueError`` above (see
+    ``hash_encode_plan``)."""
     N, d = x.shape
     L = A.shape[1]
     _require_nonempty("hash_encode", N=N, d=d, L=L)
@@ -135,17 +150,63 @@ def hash_encode(x: torch.Tensor, A: torch.Tensor,
     impl = _resolve(impl, "hash_encode", x, A, tail, a_tail)
     if impl == "ref":
         return _ref.hash_encode_ref(x, A, tail, a_tail)
-    if 8 * d * 4 > _SMEM_LIMIT:
-        raise ValueError(f"hash_encode: d={d} rows do not fit the "
-                         f"kernel's shared-memory staging")
+    plan = hash_encode_plan(
+        N, d, L, torch.cuda.get_device_properties(x.device)
+        .multi_processor_count)
     args = [_require("hash_encode", t, n, torch.float32)
             for t, n in ((x, "x"), (A, "A"), (tail, "tail"),
                          (a_tail, "a_tail"))]
     W = (L + 31) // 32
     out = torch.empty((N, W), dtype=torch.int32, device=x.device)
     _launch("hash_encode", "hash_encode", *(a.data_ptr() for a in args),
-            out.data_ptr(), N, d, L, W, shape=(N, d, L, W))
+            out.data_ptr(), N, d, L, W, plan.rows, plan.warps, plan.blocks,
+            shape=(N, d, L, W))
     return out
+
+
+class HashPlan(NamedTuple):
+    """Launch plan of ``hash_encode.cu``: ``rows`` code rows a thread,
+    slabs of ``slab`` rows (``slabs`` of them over N), ``warps`` a block
+    and ``blocks`` in the grid, and the dynamic shared memory in bytes."""
+    rows: int
+    slab: int
+    slabs: int
+    warps: int
+    blocks: int
+    smem: int
+
+
+def hash_encode_smem(d: int, L: int, rows: int, warps: int) -> int:
+    """Shared memory of a hash_encode block: A padded to 32 W columns,
+    a_tail, and one slab of ``HASH_SLAB * rows`` rows of x a warp."""
+    return 4 * ((d + 1) * 32 * ((L + 31) // 32)
+                + warps * HASH_SLAB * rows * d)
+
+
+@functools.lru_cache(maxsize=64)
+def hash_encode_plan(N: int, d: int, L: int, sms: int) -> HashPlan:
+    """The most rows a thread that still leaves every one of ``sms`` SMs 8
+    warps' worth of slabs, then as many warps a block as shared memory
+    holds (at most 16) and the slabs spread over ``sms`` blocks need, but
+    8 or more so that A's staging is spread over 256 threads (a 64-row
+    batch runs as one 8-warp block); ``ValueError`` when A and one warp's
+    slab do not fit."""
+    if hash_encode_smem(d, L, 1, 1) > _SMEM_LIMIT:
+        raise ValueError(f"hash_encode: d={d} rows do not fit the "
+                         f"kernel's shared-memory staging")
+    rows = 1
+    for r in HASH_ROWS:
+        if (-(-N // (HASH_SLAB * r)) >= _HASH_FILL * sms
+                and hash_encode_smem(d, L, r, 1) <= _SMEM_LIMIT):
+            rows = r
+    slab = HASH_SLAB * rows
+    slabs = -(-N // slab)
+    fit = max(w for w in range(1, HASH_MAX_WARPS + 1)
+              if hash_encode_smem(d, L, rows, w) <= _SMEM_LIMIT)
+    warps = min(fit, max(_HASH_MIN_WARPS, -(-slabs // sms)))
+    blocks = min(sms, -(-slabs // warps))
+    return HashPlan(rows, slab, slabs, warps, blocks,
+                    hash_encode_smem(d, L, rows, warps))
 
 
 def _check_packed(op: str, q_codes: torch.Tensor, db_codes: torch.Tensor,

@@ -38,6 +38,28 @@ RANK_SENTINEL = torch.iinfo(torch.int32).max
 RERANK_BYTES = 1 << 30
 
 
+def bucket_runs(arrs: Dict[str, torch.Tensor], q_codes: torch.Tensor,
+                probe_base: int, hash_bits: int, impl: str
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bucket arm's directory ranks (Q, B) and its probe-ordered runs,
+    the first ``min(B, probe_base)`` buckets by rank: (cum (Q, S+1),
+    starts (Q, S)), the inputs of its ``bucket_gather``."""
+    matches = ops.bucket_match(q_codes, arrs["bucket_code"], hash_bits,
+                               impl=impl)                           # (Q, B)
+    brank = arrs["rank"][arrs["bucket_rid"][None, :], matches]
+    order = torch.argsort(brank, dim=-1, stable=True)
+    B = arrs["bucket_rid"].shape[0]
+    sel = order[:, :min(B, probe_base)]
+    start = arrs["bucket_start"]
+    sizes = (start[1:] - start[:-1])[sel]
+    starts = start[:-1][sel]
+    cum = torch.cat([torch.zeros((sel.shape[0], 1), dtype=torch.int32,
+                                 device=sel.device),
+                     torch.cumsum(sizes, dim=-1, dtype=torch.int32)],
+                    dim=-1)
+    return brank, cum, starts
+
+
 def _base_arm(arrs: Dict[str, torch.Tensor], q_codes: torch.Tensor,
               probe_base: int, hash_bits: int, engine: str, impl: str
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -45,19 +67,8 @@ def _base_arm(arrs: Dict[str, torch.Tensor], q_codes: torch.Tensor,
     canonical order; dead (tombstoned) rows carry RANK_SENTINEL."""
     rank = arrs["rank"]
     if engine == "bucket":
-        matches = ops.bucket_match(q_codes, arrs["bucket_code"], hash_bits,
-                                   impl=impl)                       # (Q, B)
-        brank = rank[arrs["bucket_rid"][None, :], matches]
-        order = torch.argsort(brank, dim=-1, stable=True)
-        B = arrs["bucket_rid"].shape[0]
-        sel = order[:, :min(B, probe_base)]
-        start = arrs["bucket_start"]
-        sizes = (start[1:] - start[:-1])[sel]
-        starts = start[:-1][sel]
-        cum = torch.cat([torch.zeros((sel.shape[0], 1), dtype=torch.int32,
-                                     device=sel.device),
-                         torch.cumsum(sizes, dim=-1, dtype=torch.int32)],
-                        dim=-1)
+        brank, cum, starts = bucket_runs(arrs, q_codes, probe_base,
+                                         hash_bits, impl)
         csr_pos = ops.bucket_gather(cum, starts, probe_base, impl=impl)
         bucket_of = arrs["csr_bucket"][csr_pos]
         base_rank = torch.gather(brank, 1, bucket_of.long())

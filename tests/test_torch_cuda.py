@@ -275,3 +275,111 @@ def test_launch_shapes_count_each_shape(cuda_device):
     assert ops.launch_shapes[("hash_encode", (64, 16, 27, 1))] == 1
     assert ops.launch_shapes[("hash_encode", (8, 16, 27, 1))] == 2
     assert ops.last_shape["hash_encode"] == (8, 16, 27, 1)
+
+
+def _encode_inputs(rng, n, d, L, device, row_offset=0, near_zero=False):
+    """x (a view ``row_offset`` rows into its storage), A, tail, a_tail;
+    with ``near_zero`` every third row is moved onto the null space of a
+    bit's projection, with tail 0, so x @ A has entries within ~1e-6 of 0."""
+    x = (rng.standard_normal((n, d)) / 4).astype(np.float32)
+    A = rng.standard_normal((d, L)).astype(np.float32)
+    tail = rng.random(n).astype(np.float32)
+    if near_zero:
+        for i in range(0, n, 3):
+            a = A[:, i % L]
+            x[i] -= (x[i] @ a) / (a @ a) * a
+            tail[i] = 0.0
+    flat = torch.zeros((n + row_offset) * d, device=device)
+    flat[row_offset * d:] = torch.as_tensor(x.ravel(), device=device)
+    return (flat[row_offset * d:].view(n, d),
+            torch.as_tensor(A, device=device),
+            torch.as_tensor(tail, device=device),
+            torch.as_tensor(rng.standard_normal(L).astype(np.float32),
+                            device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [27, 48, 64, 96])
+@pytest.mark.parametrize("n,d,row_offset,near_zero", [
+    (1, 150, 0, False),          # one row
+    (64, 150, 0, True),          # a query batch, near-zero projections
+    (256, 150, 1, False),        # a calibration batch, a view 600 B in
+    (1037, 33, 0, True),         # odd d, N not a multiple of any tile
+    (1037, 33, 1, False),        # odd d, a view one row in
+    (40001, 150, 0, True),       # 4 rows a thread, warps walk slabs
+    (40001, 150, 1, False),      # the same, 4-byte copies
+    (40001, 151, 0, True),       # odd d: scalar row loads
+    (40001, 151, 1, False),      # the same, a view one row in
+])
+def test_hash_encode_kernel_equals_plain(cuda_device, L, n, d, row_offset,
+                                         near_zero):
+    """hash_encode.cu bit for bit against the plain version (k-order sums
+    without FMA): the rows a thread, warps and blocks the plan picks,
+    views one row into their storage (slabs copied 4 bytes at a time),
+    codes with pad bits zero."""
+    rng = np.random.default_rng(400 + n + d + L)
+    x, A, tail, a_tail = _encode_inputs(rng, n, d, L, cuda_device,
+                                        row_offset, near_zero)
+    got = ops.hash_encode(x, A, tail, a_tail, impl="cuda")
+    assert torch.equal(got, ops.hash_encode(x, A, tail, a_tail, impl="ref"))
+    if L % 32:
+        assert not ((got[:, -1].long() & 0xFFFFFFFF) >> (L % 32)).any()
+
+
+@pytest.mark.cuda
+def test_hash_encode_kernel_raises_past_its_shared_memory(cuda_device):
+    """d = 1453 at L = 27 raises; d = 1452 runs."""
+    rng = np.random.default_rng(450)
+    x = torch.as_tensor(rng.standard_normal((40, 1453)).astype(np.float32),
+                        device=cuda_device)
+    A = torch.as_tensor(rng.standard_normal((1453, 27)).astype(np.float32),
+                        device=cuda_device)
+    with pytest.raises(ValueError, match="shared-memory staging"):
+        ops.hash_encode(x, A, impl="cuda")
+    xs, As = x[:, :1452].contiguous(), A[:1452].contiguous()
+    assert torch.equal(ops.hash_encode(xs, As, impl="cuda"),
+                       ops.hash_encode(xs, As, impl="ref"))
+
+
+def _gather_runs(rng, q, s, empty, most, device):
+    """(cum, starts) of q queries over s runs, a fraction ``empty`` of them
+    empty, the rest 1..``most`` slots; starts anywhere in int32 (sums
+    wrap)."""
+    sizes = rng.integers(1, most + 1, (q, s))
+    sizes[rng.random((q, s)) < empty] = 0
+    cum = np.concatenate([np.zeros((q, 1), np.int64),
+                          np.cumsum(sizes, 1)], 1).astype(np.int32)
+    starts = rng.integers(-2 ** 31, 2 ** 31 - 1, (q, s), dtype=np.int64
+                          ).astype(np.int32)
+    return (torch.as_tensor(cum, device=device),
+            torch.as_tensor(starts, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,s,empty,most,P,extra", [
+    (3, 400, 0.0, 3, None, 0),       # every run non-empty
+    (3, 3000, 0.995, 3, None, 37),   # stretches of ~200 empty runs
+    (2, 2500, 0.7, 3, 5, 0),         # P < 2,048, not a multiple of 4
+    (2, 2500, 0.7, 3, 2047, 0),      # P < 2,048
+    (2, 2500, 0.3, 3, 4100, 0),      # two spans and a remainder
+    (2, 2500, 0.3, 3, 4103, 0),      # the same, P odd: 4-byte stores
+    (64, 200000, 0.0, 1, 210000, 0),  # dense: one slot a run, 10,000
+                                      # slots past every total (clamp)
+    (64, 200000, 0.99, 3, None, 0),  # sparse: 99% of the runs empty
+    (8, 30000, 0.1, 1, None, 0),     # a tenth of the runs empty
+    (8, 30000, 0.2, 1, None, 0),     # a fifth
+])
+def test_bucket_gather_kernel_equals_plain(cuda_device, q, s, empty, most,
+                                           P, extra):
+    """bucket_gather.cu equal to the plain version at the span/bracket/
+    gallop cases of the CPU model, at a dense shape with slots past every
+    query's total and at a sparse one, and at one-slot runs with a tenth
+    or a fifth of them empty; P None is the smallest total plus
+    ``extra``."""
+    rng = np.random.default_rng(500 + s + extra + (P or 0))
+    cum, starts = _gather_runs(rng, q, s, empty, most, cuda_device)
+    if P is None:
+        P = int(cum[:, -1].min()) + extra
+    got = ops.bucket_gather(cum, starts, P, impl="cuda")
+    assert got.shape == (q, P)
+    assert torch.equal(got, ops.bucket_gather(cum, starts, P, impl="ref"))

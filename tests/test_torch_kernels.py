@@ -655,3 +655,322 @@ def test_chunked_mips_topk_equals_stable_topk(per_block, k):
     wv, wi = ref.stable_topk(t(scores), k)
     gv, gi = _chunked_mips_topk(t(scores), k, per_block)
     assert torch.equal(gi, wi) and torch.equal(gv, wv)
+
+
+# -- bucket_gather.cu's span expansion, modelled ------------------------------
+#
+# The kernel maps a span of threads * per slots: two warp searches bracket
+# the span's live slots, each thread binary-searches its first slot's run
+# inside the bracket and walks forward, galloping past a run's end; slots
+# at or past cum[q, S] take run S-1. The model runs the same searches (with
+# their loads recorded) and the same store plan, and must equal the plain
+# version exactly.
+
+# bucket_gather.cu's geometry: kThreads, kPer
+GATHER_THREADS, GATHER_PER = 256, 8
+
+
+def _find_run_model(c, S, p):
+    """run_search.cuh find_run: the 32-way warp search (lane 31's probe,
+    hi - 1, always holds)."""
+    lanes = np.arange(32)
+    lo, hi = 0, S
+    while hi - lo > 32:
+        step = (hi - lo + 31) // 32
+        hit = c[np.minimum(lo + (lanes + 1) * step - 1, hi - 1) + 1] > p
+        assert hit[31]
+        first = int(np.argmax(hit))
+        i_first = min(lo + (first + 1) * step - 1, hi - 1)
+        lo = lo + first * step
+        hi = i_first + 1
+    i = lo + lanes
+    hit = (i < hi) & (c[np.minimum(i, hi - 1) + 1] > p)
+    assert hit.any()
+    return lo + int(np.argmax(hit))
+
+
+def _run_in_model(c, p, lo, hi, loads):
+    while hi - lo > 1:
+        mid = (lo + hi - 1) >> 1
+        loads.append(mid + 1)
+        if c[mid + 1] > p:
+            hi = mid + 1
+        else:
+            lo = mid + 1
+    return lo
+
+
+def _gallop_model(c, p, lo, hi, loads):
+    step = 1
+    while lo + step < hi:
+        loads.append(lo + step)
+        if c[lo + step] > p:
+            break
+        lo += step
+        step <<= 1
+    return _run_in_model(c, p, lo, min(lo + step, hi), loads)
+
+
+def _gather_model(cum, starts, P, threads, per):
+    """bucket_gather.cu in Python. Returns (positions as int32, writes per
+    output, the first slot of every 16-byte store, the loads of every
+    gallop)."""
+    Q, S = starts.shape
+    span = threads * per
+    vec = P % 4 == 0
+    out = np.zeros((Q, P), np.int64)
+    writes = np.zeros((Q, P), np.int64)
+    vector_starts, gallops = [], []
+    for q in range(Q):
+        c, st = cum[q].astype(np.int64), starts[q].astype(np.int64)
+        for p0 in range(0, P, span):
+            n = min(span, P - p0)
+            nl = max(0, min(n, int(c[S]) - p0))
+            stage = np.zeros(n, np.int64)
+            if nl > 0:
+                j0 = _find_run_model(c, S, p0)
+                j1 = _find_run_model(c, S, p0 + nl - 1) + 1
+                loads = []                # cum entries the walks read
+                for x0 in range(0, nl, per):
+                    j = _run_in_model(c, p0 + x0, j0, j1, loads)
+                    hi, base = c[j + 1], st[j] - c[j]
+                    loads += [j, j + 1]
+                    for x in range(x0, min(x0 + per, nl)):
+                        if p0 + x >= hi:
+                            steps = []
+                            j = _gallop_model(c, p0 + x, j + 1, j1, steps)
+                            gallops.append(steps)
+                            hi, base = c[j + 1], st[j] - c[j]
+                            loads += steps + [j, j + 1]
+                        stage[x] = base + p0 + x
+                assert j0 <= min(loads) and max(loads) <= j1
+            stage[nl:] = st[S - 1] - c[S - 1] + p0 + np.arange(nl, n)
+            if vec:
+                assert n % 4 == 0
+                vector_starts += list(range(q * P + p0, q * P + p0 + n, 4))
+            out[q, p0:p0 + n] = stage
+            writes[q, p0:p0 + n] += 1
+    wrapped = ((out + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+    return wrapped, writes, np.asarray(vector_starts, np.int64), gallops
+
+
+def _gather_model_checked(cum, starts, P, threads=4, per=4):
+    got, writes, vstarts, gallops = _gather_model(cum, starts, P, threads,
+                                                  per)
+    assert (writes == 1).all()
+    assert (vstarts % 4 == 0).all()
+    want = ref.bucket_gather_ref(t(cum), t(starts), P).numpy()
+    np.testing.assert_array_equal(got, want)
+    return got, gallops
+
+
+def _gather_case(kind, rng, q):
+    """(cum, starts, P) of one run layout."""
+    if kind == "dense":                   # every run non-empty, 1..3 slots
+        sizes = rng.integers(1, 4, (q, 400))
+    elif kind == "sparse":                # stretches of ~200 empty runs
+        sizes = np.where(rng.random((q, 3000)) < 0.005,
+                         rng.integers(1, 40, (q, 3000)), 0)
+    else:                                 # long runs: spans straddle them
+        sizes = rng.integers(0, 60, (q, 30))
+    cum = np.concatenate([np.zeros((q, 1), np.int64),
+                          np.cumsum(sizes, 1)], 1).astype(np.int32)
+    starts = rng.integers(0, 10 ** 6, sizes.shape).astype(np.int32)
+    return cum, starts, int(cum[:, -1].min())
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse", "long"])
+@pytest.mark.parametrize("extra", [0, 3, 37])
+def test_gather_span_model_equals_plain(kind, extra):
+    """Spans of 16 slots over dense, sparse and long runs; P = the
+    smallest total (a multiple of 4 or not) plus `extra` slots past it,
+    so some queries' tails take the clamped run S-1. Every output once,
+    16-byte stores aligned, positions equal to the plain version."""
+    rng = np.random.default_rng(300 + len(kind) + extra)
+    cum, starts, total = _gather_case(kind, rng, 3)
+    got, gallops = _gather_model_checked(cum, starts, total + extra)
+    if kind == "dense":                   # the next run costs one load
+        assert gallops and max(len(g) for g in gallops) <= 1
+    if kind == "sparse":                  # ~200 empty runs in a few loads
+        assert max(len(g) for g in gallops) <= 2 * 9 + 2
+
+
+@pytest.mark.parametrize("P", [1, 5, 2047, 2048, 4100, 4103])
+def test_gather_span_model_at_the_kernel_geometry(P):
+    """The kernel's 2,048-slot spans: P below one span, one span, and two
+    spans plus a remainder, a multiple of 4 or not; totals below P on one
+    query. Against the JAX reference too."""
+    rng = np.random.default_rng(310 + P)
+    sizes = np.where(rng.random((2, 2500)) < 0.3,
+                     rng.integers(1, 12, (2, 2500)), 0)
+    sizes[1, ::2] = 0
+    cum = np.concatenate([np.zeros((2, 1), np.int64),
+                          np.cumsum(sizes, 1)], 1).astype(np.int32)
+    starts = rng.integers(-2 ** 31, 2 ** 31 - 1, (2, 2500), dtype=np.int64
+                          ).astype(np.int32)  # sums wrap as int32 does
+    got, _ = _gather_model_checked(cum, starts, P, GATHER_THREADS,
+                                   GATHER_PER)
+    want = jops.bucket_gather(jnp.asarray(cum), jnp.asarray(starts), P,
+                              impl="ref")
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+# -- hash_encode.cu's slabs, modelled -----------------------------------------
+#
+# A persistent grid of blocks whose warps each walk slabs of 4 * rows
+# consecutive rows on their own (slab warp + warps * block, then strided
+# by the grid's warps). A slab is one contiguous block of x, copied in
+# 16-byte chunks when x's base is 16-byte aligned (the last words of a
+# partial slab in 4-byte ones), else in 4-byte ones. A warp's lanes are 4
+# bit groups x 8 row groups: lane 4 h + g holds `rows` rows of group h and
+# bits g + 4 i (i < KB: 7 when L <= 28, else 8) of each word, summing in k
+# order without FMA; one ballot per row and bit slot gathers the signs,
+# and lane l packs row l's word. The model runs that mapping over a
+# float32 storage buffer with numpy's rounded f32 ops.
+
+ENCODE_BIT_GROUPS, ENCODE_ROW_GROUPS = 4, 8
+
+
+def _encode_model(storage, offset, N, d, A, tail, a_tail, rows, warps,
+                  blocks):
+    """hash_encode.cu in numpy; x is storage[offset: offset + N d] (the
+    buffer's base counts as 16-byte aligned). Returns (codes as int32,
+    writes per output word, copies per x word, 16-byte copy sources)."""
+    L = A.shape[1]
+    W = -(-L // 32)
+    G, H = ENCODE_BIT_GROUPS, ENCODE_ROW_GROUPS
+    KB = 7 if L <= 28 else 8
+    S = H * rows
+    slabs = -(-N // S)
+    aligned = offset % 4 == 0
+    As = np.zeros((d, 32 * W), np.float32)
+    As[:, :L] = A
+    ats = np.zeros(32 * W, np.float32)
+    ats[:L] = a_tail
+    out = np.zeros((N, W), np.uint32)
+    writes = np.zeros((N, W), np.int64)
+    copies = np.zeros(N * d, np.int64)
+    chunk_src = []
+    g, i = np.arange(G)[:, None], np.arange(KB)[None, :]
+    shift = (G * np.arange(H)[:, None] + np.arange(G)[None, :]
+             ).astype(np.uint64)                       # ballot bit of (h, g)
+    for blk in range(blocks):
+        for w in range(warps):
+            for sl in range(blk * warps + w, slabs, blocks * warps):
+                w0 = sl * S
+                words = min(S, N - w0) * d
+                src = offset + w0 * d
+                buf = np.full(S * d, np.nan, np.float32)
+                if aligned:
+                    chunk_src += list(range(src, src + words // 4 * 4, 4))
+                buf[:words] = storage[src:src + words]
+                copies[w0 * d:w0 * d + words] += 1
+                xr = buf.reshape(H, rows, d)           # group h's rows
+                row = w0 + np.arange(S).reshape(H, rows)
+                live = row < N
+                tr = np.where(live, tail[np.minimum(row, N - 1)], 0
+                              ).astype(np.float32)
+                for v in range(W):
+                    b = 32 * v + g + G * i             # (G, KB): lane g's bits
+                    acc = np.zeros((H, rows, G, KB), np.float32)
+                    for k in range(d):
+                        acc = acc + xr[:, :, k, None, None] * As[k, b]
+                    proj = acc + tr[:, :, None, None] * ats[b]
+                    sign = live[:, :, None, None] & (b < L) & (proj >= 0)
+                    # ballot (r, i): bit 4 h + g is lane (g, h)'s sign
+                    vote = (sign.transpose(1, 3, 0, 2).astype(np.uint64)
+                            << shift).sum((2, 3))      # (rows, KB)
+                    for lane in range(min(S, N - w0)):
+                        hp, r = min(lane // rows, H - 1), lane % rows
+                        word = sum(((int(vote[r, s]) >> (G * hp)) & 0xF)
+                                   << (G * s) for s in range(KB))
+                        out[w0 + lane, v] = word
+                        writes[w0 + lane, v] += 1
+    return out.view(np.int32), writes, copies, np.asarray(chunk_src)
+
+
+@pytest.mark.parametrize("L", [27, 48, 64, 96])
+@pytest.mark.parametrize("N,d,rows,warps,blocks,row_offset", [
+    (1, 24, 1, 1, 1, 0),         # one row
+    (37, 24, 1, 2, 3, 0),        # N not a multiple of the 4-row slab
+    (37, 24, 1, 2, 3, 1),        # a view one row in: still 16-byte aligned
+    (45, 30, 2, 3, 2, 1),        # one row in, 120 bytes: 4-byte copies
+    (70, 33, 2, 2, 2, 0),        # odd d: slabs end mid-chunk
+    (70, 33, 1, 4, 1, 1),        # odd d, one row in
+    (300, 16, 4, 3, 2, 0),       # 4 rows a thread, a partial 32-row slab
+])
+def test_encode_slab_model_equals_plain(L, N, d, rows, warps, blocks,
+                                        row_offset):
+    """Every x word copied once (16-byte chunks at 16-byte sources when
+    the view is aligned), every output word written once, codes equal to
+    the plain version bit for bit, pad bits zero; a near-zero projection
+    planted (a row on a bit's null space, tail 0)."""
+    rng = np.random.default_rng(320 + N + d + L)
+    x = (rng.standard_normal((N, d)) / 4).astype(np.float32)
+    A = rng.standard_normal((d, L)).astype(np.float32)
+    tail = rng.random(N).astype(np.float32)
+    if N > 2:                            # row 1's bit 0 projects to ~0
+        x[1] = x[2] - (x[2] @ A[:, 0]) / (A[:, 0] @ A[:, 0]) * A[:, 0]
+        tail[1] = 0.0
+    a_tail = rng.standard_normal(L).astype(np.float32)
+    storage = np.zeros((N + row_offset) * d + 3, np.float32)
+    storage[row_offset * d:(row_offset + N) * d] = x.ravel()
+    got, writes, copies, chunks = _encode_model(
+        storage, row_offset * d, N, d, A, tail, a_tail, rows, warps, blocks)
+    assert (writes == 1).all() and (copies == 1).all()
+    assert (chunks % 4 == 0).all()
+    S = 8 * rows
+    assert chunks.size == (0 if (row_offset * d) % 4 else
+                           sum(min(S, N - w0) * d // 4
+                               for w0 in range(0, N, S)))
+    want = ref.hash_encode_ref(t(x), t(A), t(tail), t(a_tail)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if L % 32:
+        assert not (got[:, -1].view(np.uint32) >> (L % 32)).any()
+
+
+def test_encode_slab_model_matches_the_jax_reference():
+    """The model through the JAX reference: equal bits away from zero."""
+    rng = np.random.default_rng(330)
+    N, d, L = 150, 33, 27
+    x = (rng.standard_normal((N, d)) / 8).astype(np.float32)
+    A = rng.standard_normal((d, L)).astype(np.float32)
+    tail = np.sqrt(np.maximum(0.0, 1 - (x * x).sum(1))).astype(np.float32)
+    a_tail = rng.standard_normal(L).astype(np.float32)
+    got, *_ = _encode_model(x.ravel(), 0, N, d, A, tail, a_tail, 2, 3, 2)
+    want = jops.hash_encode(jnp.asarray(x), jnp.asarray(A),
+                            jnp.asarray(tail), jnp.asarray(a_tail),
+                            impl="ref")
+    proj = x.astype(np.float64) @ A + tail[:, None].astype(np.float64) * \
+        a_tail
+    norm = np.sqrt((x.astype(np.float64) ** 2).sum(1) + tail.astype(
+        np.float64) ** 2)
+    assert_codes_match(got, want, proj, norm)
+
+
+@pytest.mark.parametrize("N,rows,warps,blocks", [
+    (1, 1, 8, 1), (64, 1, 8, 1), (256, 1, 8, 4), (8440, 1, 8, 132),
+    (16880, 1, 16, 132), (16896, 2, 8, 132), (33792, 4, 8, 132),
+    (2340373, 4, 11, 132)])
+def test_hash_encode_plan_fills_the_sms(N, rows, warps, blocks):
+    """Query batches (64 and 256 rows) one row a thread in 8-warp blocks;
+    the build's 2.34 M rows 4 a thread, 11 warps (as many 32-row slabs of
+    d = 150 as fit beside A) on each of 132 SMs."""
+    plan = ops.hash_encode_plan(N, 150, 27, 132)
+    assert (plan.rows, plan.warps, plan.blocks) == (rows, warps, blocks)
+    assert plan.slab == 8 * rows and plan.slabs == -(-N // plan.slab)
+    assert plan.smem == ops.hash_encode_smem(150, 27, rows, warps)
+    assert plan.smem <= ops._SMEM_LIMIT
+    assert plan.blocks * plan.warps >= min(plan.slabs, 132)
+
+
+@pytest.mark.parametrize("L,d_max", [(27, 1452), (32, 1452), (48, 806),
+                                     (64, 806), (96, 557)])
+def test_hash_encode_plan_raises_past_the_shared_memory_limit(L, d_max):
+    """The largest d whose A (padded to 32 W columns), a_tail and one
+    warp's 8-row slab fit a block's shared memory; one more raises the
+    wrapper's ValueError."""
+    assert ops.hash_encode_plan(64, d_max, L, 132).smem <= ops._SMEM_LIMIT
+    with pytest.raises(ValueError, match="do not fit the kernel's "
+                                         "shared-memory staging"):
+        ops.hash_encode_plan(64, d_max + 1, L, 132)
