@@ -60,6 +60,32 @@ Phases, each fatal on failure:
    function (``torch.searchsorted`` for the run index, ``x @ A`` for the
    projection); they are not library pairs.
 
+5. The rest of the spec API at the same N and d. The launch counters are
+   zeroed just before the path and read right after its last call,
+   before any check or case input that calls a kernel; every kernel must
+   have launched. The path: a SIGN-ALSH and an L2-ALSH index (code_len
+   32, m 32, recall target 0.9) are built and calibrated (256 queries)
+   and answer the 1,000 queries in batches of 64 through the bucket and
+   fused engines at the planned budgets (recall@10 against ``mips_topk``
+   must reach 0.85 in every arm, fused ids must match the bucket ids
+   tie-aware); ``adaptive_query`` at target 0.9 on phase 2's bucket
+   engine (128 queries); a 4-table SIMPLE-LSH index (16 bits, m 32); the
+   paper's Fig. 2 at code length 32 (probed-item recall@10 at 0.5%, 2%
+   and 10% of N and the probes for recall 0.5 of SIMPLE-LSH, RANGE-LSH
+   at m 32, phase 2's index, and m 64, flat L2-ALSH and the SIGN-ALSH
+   index, with the SIMPLE-LSH to RANGE-LSH probe ratio: measurements, no
+   limit); one SIGN-ALSH streaming round (64 inserts, 16 deletes, one
+   batch through "auto" and "bucket" at the planned width). Then the
+   checks: both families' item codes and a query batch's codes must
+   equal the paper's transform and hash recomputed in f64 except inside
+   the band an f32 product can cross; the adaptive (vals, ids) must equal
+   the planned re-rank's tie-aware; the multi-table ids and candidate
+   counts must equal ``impl="ref"``'s; the streaming candidates must
+   equal a rebuild. Then each kernel is held against its plain version
+   at the shapes this phase gave it (as in phase 4; the plain fused
+   query runs a few queries at a time), and every ``kernels`` row gets
+   its kernel's launches on each path (``launches_by_path``).
+
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside it, the script exits
@@ -101,6 +127,12 @@ DELETES = 16              # half from the base, half from the delta
 OVERFLOW_ROUND = 8
 OVERFLOW_FACTOR = 2.5
 STREAM_RECALL = 0.85
+ALSH_KERNELS = ("hash_encode", "hamming_scan", "bucket_gather",
+                "fused_query", "bucket_match", "delta_scan", "mips_topk")
+ALSH_RECALL = 0.85        # each arm of both ALSH families at target 0.9
+ADAPTIVE_QUERIES = 128    # two batches through adaptive_query
+FIG2_M = 64               # benchmarks/fig2_recall.py's M_FOR_L[32]
+FIG2_FRACTIONS = (0.005, 0.02, 0.10)
 
 
 def fail(msg: str) -> None:
@@ -512,6 +544,430 @@ def streaming_phase(idx, ops, dev):
     return launches, shapes, inputs
 
 
+def truth_ids(ops, queries, items):
+    """Exact top-K ids of ``queries`` over ``items`` through ``mips_topk``,
+    BATCH queries a launch."""
+    import torch
+    return torch.cat([ops.mips_topk(queries[s:s + BATCH], items, K)[1]
+                      for s in range(0, queries.shape[0], BATCH)])
+
+
+def in_chunks(call, q: int, rows: int):
+    """``call(sl)`` over query slices of ``rows``, outputs concatenated
+    along the query axis: a plain version held to a bounded block."""
+    import torch
+    outs = [call(slice(s, s + rows)) for s in range(0, q, rows)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def run_cases(name, queries, cum, starts, items_csr, total, kp, dev):
+    """Phase-4 cases of the gather and the fused query at one planned
+    arm's shapes; the plain fused query runs a few queries at a time so
+    its (Q, total, d) block stays within 4 GiB."""
+    import torch
+    from repro_torch.kernels import ops
+    q, d = queries.shape
+    runs = held_runs(cum, total)
+    takes = cum[:, -1].clamp(max=total)
+    slots = int(takes.sum())
+    surv = int(takes.clamp(max=kp).sum())
+    probed = ops.bucket_gather(cum, starts, total, impl="ref")
+    live = torch.arange(total, device=dev)[None] < takes[:, None]
+    hit = torch.zeros(items_csr.shape[0], dtype=torch.bool, device=dev)
+    hit[probed[live].long()] = True
+    rows = int(hit.sum())
+    del probed, live, hit
+    chunk = max(1, (4 << 30) // (4 * total * d))
+
+    def fused(impl):
+        if impl != "ref":
+            return ops.fused_query(queries, cum, starts, items_csr, total, K,
+                                   impl=impl)
+        return in_chunks(lambda sl: ops.fused_query(
+            queries[sl], cum[sl], starts[sl], items_csr, total, K,
+            impl="ref"), q, chunk)
+    return {
+        f"bucket_gather_{name}": dict(
+            call=lambda impl: ops.bucket_gather(cum, starts, total,
+                                                impl=impl),
+            bytes=4 * (2 * runs + q * total), ops=2 * slots,
+            kernel="bucket_gather", path="alsh", plain_reps=3,
+            source="src/repro_torch/kernels/csrc/bucket_gather.cu",
+            replaces="src/repro/kernels/bucket_probe.py:124"),
+        f"fused_query_{name}": dict(
+            call=fused, kernel="fused_query", path="alsh", plain_reps=3,
+            bytes=4 * q * d + 8 * runs + 8 * q * K + rows * (4 * d + 4),
+            ops=2 * (slots + surv) * d,
+            check=lambda got, want: check_topk(
+                f"fused_query_{name}", got[1], got[0], want[1], want[0],
+                queries, items_csr),
+            source="src/repro_torch/kernels/csrc/fused_query.cu",
+            replaces="src/repro/kernels/fused_query.py:156"),
+    }
+
+
+def check_alsh_codes(fidx, items, queries):
+    """The card's codes of an ALSH index and of a query batch against the
+    paper's transform and hash recomputed here in f64 (not through the
+    port's functions): a code may differ only inside the band an f32
+    product can move it across, a sign bit where ``|P(x).a| < 1e-5
+    ||P(x)|| ||a||``, an L2 hash where ``(P(x).a + b)/r`` lies within
+    ``1e-5 (1 + |.|)`` of an integer. Returns (codes held, codes that
+    differ inside the band)."""
+    import torch
+    fam, L = fidx.family, fidx.hash_bits
+    sign = fam.packed
+    if sign:                                        # SIGN-ALSH: P(x).a >= 0
+        A, b = fidx.params.double(), None
+    else:                                           # L2-ALSH: floor((.+b)/r)
+        A, b = fidx.params.a.double(), fidx.params.b.double()
+    a_norm = A.norm(dim=0)
+
+    def held(aug, codes):
+        proj = aug @ A
+        if sign:
+            want = proj >= 0
+            band = proj.abs() < 1e-5 * aug.norm(dim=1, keepdim=True) * a_norm
+            words = codes.long() & 0xFFFFFFFF
+            got = ((words[:, :, None] >> torch.arange(
+                32, device=codes.device)) & 1).reshape(codes.shape[0], -1)
+            got = got[:, :L].bool()
+        else:
+            v = (proj + b) / fam.r
+            want = torch.floor(v)
+            band = (v - torch.round(v)).abs() < 1e-5 * (1.0 + v.abs())
+            got = codes.double()
+        diff = got != want
+        return int(diff.numel()), int(diff.sum()), int((diff & ~band).sum())
+
+    totals = [0, 0, 0]
+    scale = fam.U / fidx.upper_eff.double()[fidx.range_id.long()]
+    rows = 1 << 18
+    for s in range(0, items.shape[0], rows):
+        x = items[s:s + rows].double() * scale[s:s + rows, None]
+        powers, acc = [], (x * x).sum(1)            # ||Ux||^2, ^4, ..., ^2^m
+        for _ in range(fam.m):
+            powers.append(acc)
+            acc = acc * acc
+        tail = torch.stack(powers, 1)
+        aug = torch.cat([x, 0.5 - tail if sign else tail], 1)
+        for i, v in enumerate(held(aug, fidx.codes[s:s + rows])):
+            totals[i] += v
+    qn = queries.double() / queries.double().norm(dim=1, keepdim=True)
+    aug = torch.cat([qn, torch.full((qn.shape[0], fam.m),
+                                    0.0 if sign else 0.5, dtype=qn.dtype,
+                                    device=qn.device)], 1)
+    for i, v in enumerate(held(aug, fam.encode_queries(fidx.params,
+                                                       queries))):
+        totals[i] += v
+    held_n, differ, outside = totals
+    if outside:
+        fail(f"{fam.name}: {outside} of {held_n} card codes differ from the "
+             f"f64 transform and hash outside the f32 band")
+    return held_n, differ
+
+
+def alsh_phase(ds, idx, bucket_eng, ops, dev, card):
+    """Phase 5: the SIGN-ALSH and L2-ALSH families, adaptive early
+    termination, multi-table single-probe, the paper's Fig. 2 and one
+    SIGN-ALSH streaming round, at N_ITEMS and DIM. The launch counts are
+    copied right after the path's last call, before any check that calls
+    a kernel (the adaptive comparison, the rebuild, the code check) and
+    before the kernel cases' inputs are built. Returns the path's launch
+    counts and shapes and the phase-4 cases of the kernels at the shapes
+    it gave them."""
+    import numpy as np
+    import torch
+    from repro_torch import streaming
+    from repro_torch.core import planner, topk
+    from repro_torch.core.engine import (QueryEngine, _directory_order,
+                                         _planned_runs)
+    from repro_torch.core.hashing import (scalar_over,
+                                          sign_alsh_item_transform)
+    from repro_torch.core.index import IndexSpec, build
+    from repro_torch.data.synthetic import make_dataset
+
+    qs, items = ds.queries, ds.items
+    traffic = make_dataset("imagenet", SEED + 51, n=INSERTS, d=DIM,
+                           num_queries=BATCH)
+    rng = np.random.default_rng(SEED + 50)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    truth = truth_ids(ops, qs, items)                      # (Q, K) int32
+
+    # -- the two ALSH families, built, calibrated, queried ------------------
+    fams = {}
+    for s_, fam in enumerate(("sign_alsh", "l2_alsh")):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 20 + s_)
+        spec = IndexSpec(family=fam, code_len=32, m=32, engine="bucket",
+                         recall_target=RECALL_TARGET)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fidx = build(dataclasses.replace(spec, recall_target=None), items,
+                     gen)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        bucket = QueryEngine(fidx, engine="bucket")
+        torch.cuda.synchronize()
+        t_store = time.perf_counter() - t0 - t_build
+        t0 = time.perf_counter()
+        fidx = fidx._replace(spec=spec, calib=planner.calibrate(
+            fidx, generator=gen, buckets=bucket.buckets))
+        torch.cuda.synchronize()
+        t_cal = time.perf_counter() - t0
+        fused = QueryEngine(fidx, engine="fused", buckets=bucket.buckets)
+        plan = planner.resolve_budgets(fidx.calib, RECALL_TARGET, k=K)
+        ms = {"bucket": [], "fused": []}
+        hits = {"bucket": 0, "fused": 0}
+        swaps = 0
+        for s in range(0, NUM_QUERIES, BATCH):
+            qb = qs[s:s + BATCH]
+            out = {}
+            for arm, eng in (("bucket", bucket), ("fused", fused)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[arm] = eng.query(qb, K, budgets=plan.budgets)
+                torch.cuda.synchronize()
+                ms[arm].append(1e3 * (time.perf_counter() - t0))
+                hits[arm] += int((out[arm][1][:, :, None]
+                                  == truth[s:s + BATCH, None, :]).any(1)
+                                 .sum())
+            swaps += check_topk(f"{fam} fused vs bucket", out["fused"][1],
+                                out["fused"][0], out["bucket"][1],
+                                out["bucket"][0], qb, items)[1]
+        print(f"alsh: {fam} index {t_build:.3f} s, bucket store "
+              f"B={bucket.buckets.num_buckets} {t_store:.3f} s, "
+              f"calibration ({planner.DEFAULT_CAL_QUERIES} queries) "
+              f"{t_cal:.3f} s; planned width {plan.num_probe} "
+              f"(predicted {plan.predicted_recall:.4f}) [{card}]")
+        for arm in ms:
+            rec = hits[arm] / truth.numel()
+            print(f"alsh: {fam} {arm:6s} recall@{K} {rec:.4f} median "
+                  f"{statistics.median(ms[arm]):.3f} ms/batch of {BATCH} "
+                  f"(first {ms[arm][0]:.3f} ms) [{card}]")
+            if rec < ALSH_RECALL:
+                fail(f"{fam} {arm} recall@{K} {rec:.4f} < {ALSH_RECALL}")
+        print(f"alsh: {fam} fused vs bucket ids differ in {swaps} tied "
+              f"slots")
+        fams[fam] = dict(index=fidx, bucket=bucket, fused=fused, plan=plan)
+
+    # -- adaptive early termination on the slice-1 RANGE-LSH engine ---------
+    adaptive = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, ADAPTIVE_QUERIES, BATCH):
+        adaptive.append(planner.adaptive_query(
+            bucket_eng, qs[s:s + BATCH], K, recall_target=RECALL_TARGET))
+    torch.cuda.synchronize()
+    t_ad = time.perf_counter() - t0
+
+    # -- multi-table single-probe --------------------------------------------
+    mspec = IndexSpec(family="simple", code_len=16, m=32, num_tables=4,
+                      engine="dense")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mt = build(mspec, items, torch.Generator(device=dev).manual_seed(
+        SEED + 30))
+    torch.cuda.synchronize()
+    t_mt = time.perf_counter() - t0
+    qb = qs[:BATCH]
+    t0 = time.perf_counter()
+    mv, mi_, mn = mt.query(qb, K)
+    torch.cuda.synchronize()
+    t_mq = time.perf_counter() - t0
+
+    # -- the paper's Fig. 2 at code length 32 ---------------------------------
+    fig = {"simple_lsh_m1": IndexSpec(family="simple", code_len=32),
+           "range_lsh_m32": None,
+           "range_lsh_m64": IndexSpec(family="simple", code_len=32,
+                                      m=FIG2_M),
+           "l2_alsh_m1": IndexSpec(family="l2_alsh", code_len=32),
+           "sign_alsh_m32": None}
+    probes = [max(K, int(N_ITEMS * f)) for f in FIG2_FRACTIONS]
+    curves = {}
+    for s_, (name, fspec) in enumerate(fig.items()):
+        if fspec is None:
+            fidx = (idx if name == "range_lsh_m32"
+                    else fams["sign_alsh"]["index"])
+        else:
+            fidx = build(fspec, items, torch.Generator(device=dev)
+                         .manual_seed(SEED + 40 + s_))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pos = torch.cat([topk.truth_positions(
+            fidx.probe_order(qs[s:s + BATCH]), truth[s:s + BATCH])
+            for s in range(0, NUM_QUERIES, BATCH)])
+        torch.cuda.synchronize()
+        t_ord = time.perf_counter() - t0
+        rec = topk.recall_from_positions(pos, probes)
+        srt = torch.sort(pos.reshape(-1)).values
+        need = int(srt[-(-srt.numel() // 2) - 1]) + 1   # recall 0.5
+        curves[name] = need
+        print(f"fig2: {name:14s} recall@{K} at 0.5%/2%/10% of N "
+              f"{float(rec[0]):.4f} {float(rec[1]):.4f} "
+              f"{float(rec[2]):.4f}; probes for recall 0.5: {need}; "
+              f"{NUM_QUERIES} probe orders {t_ord:.3f} s [{card}]")
+    del fidx
+    for m_ in ("range_lsh_m32", "range_lsh_m64"):
+        print(f"fig2: SIMPLE-LSH / {m_} probes for recall 0.5: "
+              f"{curves['simple_lsh_m1'] / max(curves[m_], 1):.2f}")
+
+    # -- one SIGN-ALSH streaming round -----------------------------------------
+    sidx = fams["sign_alsh"]["index"]
+    mi = streaming.MutableIndex.from_composed(sidx)
+    t0 = time.perf_counter()
+    mi.insert(traffic.items[:INSERTS])
+    base = np.flatnonzero(mi._live)
+    dslots = mi.store_size + np.flatnonzero(mi.delta._live[:mi.delta.count])
+    mi.delete(np.concatenate([rng.choice(base, DELETES // 2, replace=False),
+                              rng.choice(dslots, DELETES // 2,
+                                         replace=False)]))
+    torch.cuda.synchronize()
+    t_write = time.perf_counter() - t0
+    sq_b = traffic.queries[:BATCH]
+    width = min(fams["sign_alsh"]["plan"].num_probe, mi.live_count)
+    got = {}
+    for engine in ("auto", "bucket"):
+        mi.engine = engine
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[engine] = mi.query(sq_b, K, width)
+        torch.cuda.synchronize()
+        print(f"stream5: sign_alsh {engine:6s} query at width {width} "
+              f"{1e3 * (time.perf_counter() - t0):.3f} ms [{card}]")
+
+    # the path ends here: its launches, before any check calls a kernel
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    shapes = dict(ops.launch_shapes)
+    print(f"launches on the phase-5 path: "
+          f"{ {k: launches[k] for k in ALSH_KERNELS} }")
+    idle = [op for op in ALSH_KERNELS if launches[op] == 0]
+    if idle:
+        fail(f"kernels never launched on the phase-5 path: {idle}")
+
+    # -- the phase's checks ------------------------------------------------------
+    for fam, f in fams.items():
+        n_held, n_diff = check_alsh_codes(f["index"], items, qs[:BATCH])
+        print(f"alsh: {fam} card codes ({n_held} item and query codes) "
+              f"equal the f64 transform and hash but {n_diff}, all inside "
+              f"the f32 band")
+    used, diff = [], 0
+    for s, (av, ai, au) in zip(range(0, ADAPTIVE_QUERIES, BATCH), adaptive):
+        qb = qs[s:s + BATCH]
+        fv, fi = bucket_eng.query(qb, K, recall_target=RECALL_TARGET)
+        diff += check_topk("adaptive vs planned re-rank", ai, av, fi, fv,
+                           qb, items)[1]
+        used.append(au)
+    used = torch.cat(used).double()
+    a_width = planner.resolve_budgets(idx.calib, RECALL_TARGET,
+                                      k=K).num_probe
+    print(f"adaptive: target {RECALL_TARGET}, {ADAPTIVE_QUERIES} queries: "
+          f"probes_used mean {float(used.mean()):.1f} std "
+          f"{float(used.std()):.1f} min {int(used.min())} max "
+          f"{int(used.max())} of planned width {a_width} (saves "
+          f"{100 * (1 - float(used.mean()) / a_width):.2f}%); (vals, ids) "
+          f"equal the planned re-rank ({diff} tied slots differ); "
+          f"{t_ad:.3f} s [{card}]")
+    qb = qs[:BATCH]
+    rv, ri, rn = mt._replace(spec=dataclasses.replace(
+        mspec, impl="ref")).query(qb, K)
+    if not (torch.equal(mi_, ri) and torch.equal(mn, rn)):
+        fail("multi-table ids or candidate counts differ from impl='ref'")
+    mrec = float((mi_[:, :, None] == truth[:BATCH, None, :]).any(1)
+                 .double().mean())
+    print(f"multitable: 4 tables x 16 bits, m=32: build {t_mt:.3f} s, "
+          f"{BATCH} queries {1e3 * t_mq:.3f} ms; n_cand mean "
+          f"{float(mn.double().mean()):.1f} min {int(mn.min())} max "
+          f"{int(mn.max())}; recall@{K} {mrec:.4f}; ids equal impl='ref' "
+          f"[{card}]")
+    del mt
+    if not torch.equal(got["auto"][1], got["bucket"][1]):
+        fail("sign_alsh streaming: auto and bucket query ids differ")
+
+    def match_fn(q_codes, codes):
+        return sidx.family.match_counts(sidx.params, q_codes, codes,
+                                        mi.hash_bits)
+    for engine in ("bucket", "dense"):
+        mi.engine = engine
+        if not torch.equal(mi.candidates(sq_b, width), rebuild_candidates(
+                mi, sq_b, width, engine, match_fn)):
+            fail(f"sign_alsh streaming {engine} candidates differ from a "
+                 f"rebuild")
+    print(f"stream5: sign_alsh {INSERTS} inserts + {DELETES} deletes "
+          f"{1e3 * t_write:.3f} ms; candidates equal a rebuild (bucket and "
+          f"dense, width {width}) [{card}]")
+
+    # -- the kernels' inputs at the shapes the path gave them -----------------
+    cases = {}
+    qb = qs[:BATCH]
+    for fam, f in fams.items():
+        fidx, bucket, fused, plan = (f["index"], f["bucket"], f["fused"],
+                                     f["plan"])
+        q_codes = fused._encode(qb)
+        order = _directory_order(bucket.buckets, q_codes, fused._match_fn)
+        cum, starts = _planned_runs(bucket.buckets, order, plan.budgets)
+        kp = max(K, min(max(4 * K, 32), plan.num_probe))
+        cases.update(run_cases(fam, qb, cum, starts, fused._fused_arrays[0],
+                               plan.num_probe, kp, dev))
+        if fam == "sign_alsh":
+            # the item encode's input: P(x) of d + m = 152 columns
+            W, n = fidx.codes.shape[1], fidx.codes.shape[0]
+            x = items * scalar_over(fidx.family.U, fidx.upper_eff[
+                fidx.range_id.long()])[:, None]
+            px = sign_alsh_item_transform(x, fidx.family.m, 1.0)
+            A, dd, L = fidx.params, px.shape[1], fidx.hash_bits
+            bcodes = bucket.buckets.bucket_code
+            nb = bcodes.shape[0]
+            cases["hash_encode_sign_alsh"] = dict(
+                call=lambda impl: ops.hash_encode(px, A, impl=impl),
+                bytes=4 * (n * dd + dd * L + n * W),
+                ops=2 * n * dd * L, op_rate=PEAK_OPS_NO_FMA,
+                kernel="hash_encode", path="alsh",
+                source="src/repro_torch/kernels/csrc/hash_encode.cu",
+                replaces="src/repro/kernels/hash_encode.py:83")
+            cases["hamming_scan_sign_alsh"] = dict(
+                call=lambda impl, q_=q_codes: ops.hamming_scan(
+                    q_, bcodes, impl=impl),
+                bytes=4 * (BATCH * W + nb * W + BATCH * nb),
+                ops=2 * BATCH * nb * W, kernel="hamming_scan", path="alsh",
+                source="src/repro_torch/kernels/csrc/hamming.cu",
+                replaces="src/repro/kernels/hamming.py:46")
+    del fams
+
+    # the streaming round's and the truth's kernels at their shapes
+    sq = mi.encode_queries(sq_b)
+    hb, W = mi.hash_bits, sq.shape[1]
+    bc = mi.buckets.bucket_code.clone()
+    dc, dlive = mi.delta.codes.clone(), mi.delta.live.clone()
+    nb, cap = bc.shape[0], dc.shape[0]
+    cases["bucket_match_sign_alsh"] = dict(
+        call=lambda impl: ops.bucket_match(sq, bc, hb, impl=impl),
+        bytes=4 * (BATCH * W + nb * W + BATCH * nb),
+        ops=2 * BATCH * nb * W + BATCH * nb, kernel="bucket_match",
+        path="alsh", source="src/repro_torch/kernels/csrc/hamming.cu",
+        replaces="src/repro/kernels/bucket_probe.py:70")
+    cases["delta_scan_sign_alsh"] = dict(
+        call=lambda impl: ops.delta_scan(sq, dc, dlive, hb, impl=impl),
+        bytes=4 * (BATCH * W + cap * W + BATCH * cap) + cap,
+        ops=2 * BATCH * cap * W + 2 * BATCH * cap, kernel="delta_scan",
+        path="alsh", source="src/repro_torch/kernels/csrc/hamming.cu",
+        replaces="src/repro/kernels/delta_scan.py:58")
+    qt = qs[:BATCH]
+    cases["mips_topk_truth"] = dict(
+        call=lambda impl: ops.mips_topk(qt, items, K, impl=impl),
+        bytes=4 * (BATCH * DIM + N_ITEMS * DIM + 2 * BATCH * K),
+        ops=2 * BATCH * N_ITEMS * DIM, kernel="mips_topk", path="alsh",
+        library=lambda: torch.topk(qt @ items.T, K),
+        check=lambda got, want: check_topk("mips_topk_truth", got[1],
+                                           got[0], want[1], want[0], qt,
+                                           items),
+        source="src/repro_torch/kernels/csrc/mips_topk.cu",
+        replaces="src/repro/kernels/mips_topk.py:93")
+    del mi
+    return launches, shapes, cases
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -799,73 +1255,89 @@ def main() -> int:
           f"of {g_cum.shape[1] - 1} a query")
     rows = []
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    for name, c in cases.items():
-        got, want = c["call"]("cuda"), c["call"]("ref")
-        torch.cuda.synchronize()
-        kernel = c.get("kernel", name)
-        shape = ops.last_shape[kernel]
-        if name.startswith("fused_query"):
-            err, swaps = check_topk(name, got[1], got[0], want[1], want[0],
-                                    qb, items_csr)
-        elif name == "mips_topk":
-            err, swaps = check_topk(name, got[1], got[0], want[1], want[0],
-                                    st["queries"], st["live_vecs"])
-        else:
-            if not torch.equal(got, want):
-                fail(f"{name}: kernel != plain version at the main-path "
-                     f"shape ({int((got != want).sum())} entries differ)")
-            err, swaps = 0.0, 0
-        k_ms = timed(lambda: c["call"]("cuda"))
-        p_ms = timed(lambda: c["call"]("ref"), reps=10, warmup=1)
-        lib_ms = timed(c["library"]) if "library" in c else None
-        cold_ms = (timed_cold(lambda: c["call"]("cuda"), flush)
-                   if c.get("cold") else None)
-        ceil_ms = dev_ms = None
-        if "ceiling" in c:
-            fill = torch.empty(c["ceiling"], dtype=torch.int32, device=dev)
-            ceil_ms = timed(lambda: fill.fill_(7))
-            del fill
-        profiled_row = "ceiling" in c or "device" in c
-        if profiled_row:
-            dev_ms = device_ms(lambda: c["call"]("cuda"),
-                               names=c.get("device", ("_kernel",)))
-        t_bytes = c["bytes"] / PEAK_BYTES
-        t_ops = c["ops"] / c.get("op_rate", PEAK_OPS)
-        streaming = c.get("stream", kernel in ("bucket_match", "delta_scan",
-                                               "mips_topk"))
-        runs = stream_launches if streaming else launches
-        at_shape = (stream_shapes if streaming else shapes).get(
-            (kernel, shape), 0)
-        row = {
-            "name": name, "route": "cuda", "source": c["source"],
-            "replaces": c["replaces"], "launches": at_shape,
-            "launches_all": runs[kernel], "shape": list(shape),
-            "max_abs_err": err, "ms": k_ms, "ms_cold": cold_ms,
-            "device_ms": dev_ms, "ceiling_ms": ceil_ms, "plain_ms": p_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "parity": "ok"}
-        if "op_rate" in c:
-            row["op_rate"] = "no FMA: each multiply and add alone"
-        if "probe_of" in c:       # a probe shape goes inside its row
-            owner = next(r for r in rows if r["name"] == c["probe_of"])
-            owner[name] = {k: row[k] for k in (
-                "shape", "launches", "max_abs_err", "ms", "device_ms",
-                "ceiling_ms", "plain_ms", "bound_ms")}
-        else:
-            rows.append(row)
-        lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
-        lib += "" if cold_ms is None else f", cold {cold_ms:.4f} ms"
-        lib += "" if ceil_ms is None else f", fill_ {ceil_ms:.4f} ms"
-        lib += ("" if not profiled_row else ", device " + (
-            "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"))
-        by = row["bound_by"] + (" (no FMA)" if "op_rate" in c
-                                 and row["bound_by"] == "operations" else "")
-        print(f"kernel: {name} {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound "
-              f"{row['bound_ms']:.4f} ms ({by}), "
-              f"{c['bytes']} bytes, {c['ops']} ops, max err {err}, "
-              f"tied swaps {swaps}, launches {at_shape} at {shape} "
-              f"({runs[kernel]} in all)")
+    paths = {"main": (launches, shapes),
+             "stream": (stream_launches, stream_shapes)}
+
+    def compare(cases):
+        """Each case's kernel against its plain version, timed and
+        bounded; appends the rows."""
+        for name, c in cases.items():
+            got, want = c["call"]("cuda"), c["call"]("ref")
+            torch.cuda.synchronize()
+            kernel = c.get("kernel", name)
+            shape = ops.last_shape[kernel]
+            if "check" in c:
+                err, swaps = c["check"](got, want)
+            elif name.startswith("fused_query"):
+                err, swaps = check_topk(name, got[1], got[0], want[1],
+                                        want[0], qb, items_csr)
+            elif name == "mips_topk":
+                err, swaps = check_topk(name, got[1], got[0], want[1],
+                                        want[0], st["queries"],
+                                        st["live_vecs"])
+            else:
+                if not torch.equal(got, want):
+                    fail(f"{name}: kernel != plain version at the path's "
+                         f"shape ({int((got != want).sum())} entries "
+                         f"differ)")
+                err, swaps = 0.0, 0
+            del got, want
+            k_ms = timed(lambda: c["call"]("cuda"))
+            p_ms = timed(lambda: c["call"]("ref"),
+                         reps=c.get("plain_reps", 10), warmup=1)
+            lib_ms = timed(c["library"]) if "library" in c else None
+            cold_ms = (timed_cold(lambda: c["call"]("cuda"), flush)
+                       if c.get("cold") else None)
+            ceil_ms = dev_ms = None
+            if "ceiling" in c:
+                fill = torch.empty(c["ceiling"], dtype=torch.int32,
+                                   device=dev)
+                ceil_ms = timed(lambda: fill.fill_(7))
+                del fill
+            profiled_row = "ceiling" in c or "device" in c
+            if profiled_row:
+                dev_ms = device_ms(lambda: c["call"]("cuda"),
+                                   names=c.get("device", ("_kernel",)))
+            t_bytes = c["bytes"] / PEAK_BYTES
+            t_ops = c["ops"] / c.get("op_rate", PEAK_OPS)
+            path = c.get("path") or ("stream" if c.get(
+                "stream", kernel in ("bucket_match", "delta_scan",
+                                     "mips_topk")) else "main")
+            runs, path_shapes = paths[path]
+            at_shape = path_shapes.get((kernel, shape), 0)
+            row = {
+                "name": name, "route": "cuda", "source": c["source"],
+                "replaces": c["replaces"], "launches": at_shape,
+                "launches_all": runs[kernel], "path": path,
+                "kernel": kernel, "shape": list(shape),
+                "max_abs_err": err, "ms": k_ms, "ms_cold": cold_ms,
+                "device_ms": dev_ms, "ceiling_ms": ceil_ms,
+                "plain_ms": p_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib_ms, "parity": "ok"}
+            if "op_rate" in c:
+                row["op_rate"] = "no FMA: each multiply and add alone"
+            if "probe_of" in c:       # a probe shape goes inside its row
+                owner = next(r for r in rows if r["name"] == c["probe_of"])
+                owner[name] = {k: row[k] for k in (
+                    "shape", "launches", "max_abs_err", "ms", "device_ms",
+                    "ceiling_ms", "plain_ms", "bound_ms")}
+            else:
+                rows.append(row)
+            lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+            lib += "" if cold_ms is None else f", cold {cold_ms:.4f} ms"
+            lib += "" if ceil_ms is None else f", fill_ {ceil_ms:.4f} ms"
+            lib += ("" if not profiled_row else ", device " + (
+                "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"))
+            by = row["bound_by"] + (" (no FMA)" if "op_rate" in c and
+                                     row["bound_by"] == "operations" else "")
+            print(f"kernel: {name} {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, "
+                  f"bound {row['bound_ms']:.4f} ms ({by}), "
+                  f"{c['bytes']} bytes, {c['ops']} ops, max err {err}, "
+                  f"tied swaps {swaps}, launches {at_shape} at {shape} "
+                  f"({runs[kernel]} on its path) [{smi}]")
+
+    compare(cases)
     # device time of each launch of the redesigned kernels
     redesigned = ("hash_encode", "hamming_scan", "bucket_gather",
                   "bucket_gather_stream", "delta_scan", "fused_query",
@@ -873,6 +1345,16 @@ def main() -> int:
     profile_batch("one call each of " + ", ".join(redesigned),
                   lambda: [cases[n]["call"]("cuda") for n in redesigned],
                   top=12)
+    del cases, st
+
+    # -- 5. ALSH families, adaptive, multi-table, Fig. 2 ----------------------
+    alsh_launches, alsh_shapes, alsh_cases = alsh_phase(
+        ds, idx, arms["bucket"], ops, dev, smi)
+    paths["alsh"] = (alsh_launches, alsh_shapes)
+    compare(alsh_cases)
+    for row in rows:
+        row["launches_by_path"] = {p_: runs_[row["kernel"]]
+                                   for p_, (runs_, _) in paths.items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,22 +53,35 @@ def calibration_from_fields(fields: Mapping) -> CalibrationTable:
         int(fields["k"]), int(fields["num_queries"]))
 
 
+def _host_params(params):
+    """Numpy copies of a parameter pytree: one array, or a tuple of
+    arrays (L2-ALSH's ``(a, b)``)."""
+    if isinstance(params, (tuple, list)):
+        return tuple(np.array(p, np.float32) for p in params)
+    return np.array(params, np.float32)
+
+
 def index_from_fields(arrays: Mapping, spec: Mapping, hash_bits: int, *,
                       calib: Optional[Mapping] = None, impl: str = "auto",
                       device=None) -> ComposedIndex:
     """The port's :class:`ComposedIndex` from the reference index's
     arrays (``INDEX_FIELDS``), spec fields and ``hash_bits``, on
-    ``device`` (the card unless ``device="cpu"``)."""
+    ``device`` (the card unless ``device="cpu"``). Any family crosses:
+    ``params`` is one matrix for the sign families and the pair ``(a,
+    b)`` for L2-ALSH; ``codes`` are packed uint32 words or int32
+    hashes."""
     device = resolve_device(device)
+    pspec = spec_from_fields(spec, impl=impl)
 
     def tensor(name, dtype):
         a = np.asarray(arrays[name])
         if name == "codes":
+            # uint32 sign words keep their bits; L2-ALSH hashes are int32
             a = np.ascontiguousarray(a).view(np.int32)
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
     return ComposedIndex(
-        spec=spec_from_fields(spec, impl=impl),
+        spec=pspec,
         items=tensor("items", np.float32),
         norms=tensor("norms", np.float32),
         codes=tensor("codes", np.int32),
@@ -76,7 +89,8 @@ def index_from_fields(arrays: Mapping, spec: Mapping, hash_bits: int, *,
         upper=tensor("upper", np.float32),
         upper_eff=tensor("upper_eff", np.float32),
         lower=tensor("lower", np.float32),
-        params=tensor("params", np.float32),
+        params=pspec.resolve_family().params_on(
+            _host_params(arrays["params"]), device),
         table=tensor("table", np.float32),
         hash_bits=int(hash_bits),
         calib=None if calib is None else calibration_from_fields(calib))
@@ -89,15 +103,13 @@ def mutable_index_from_tree(tree: Mapping, *, device=None, **kw):
     storage, CSR store, delta buffer, bounds, projections and, when the
     tree has one, calibration. ``kw`` passes runtime knobs (engine, impl,
     repartition_policy, skew thresholds) to the index."""
-    from repro_torch.core.family import SimpleLSHFamily
     from repro_torch.streaming.delta import DeltaBuffer
     from repro_torch.streaming.index import _CSR, MutableIndex
+    from repro_torch.streaming.persist import family_from_meta
 
     device = resolve_device(device)
     st, dl, cs, meta = tree["store"], tree["delta"], tree["csr"], tree["meta"]
-    if int(meta.get("family_id", 0)) != 0:
-        raise ValueError("the snapshot's hash family (SIGN-ALSH) is not yet "
-                         "ported to repro_torch; only 'simple' is")
+    family = family_from_meta(meta)
     capacity = int(meta["capacity"])
     delta = DeltaBuffer(capacity, int(dl["items"].shape[1]),
                         int(dl["codes"].shape[1]), device=device)
@@ -115,7 +127,7 @@ def mutable_index_from_tree(tree: Mapping, *, device=None, **kw):
     csr = _CSR(**{f: np.array(cs[f], np.uint32 if "code" in f else np.int32)
                   for f in _CSR._fields})
     mindex = MutableIndex(
-        family=SimpleLSHFamily(),
+        family=family,
         items=np.array(st["items"], np.float32),
         norms=np.asarray(st["norms"]), codes=np.asarray(st["codes"]),
         range_id=np.asarray(st["range_id"]), live=np.asarray(st["live"]),

@@ -81,16 +81,19 @@ def rank_from_scores(table: torch.Tensor) -> torch.Tensor:
 def build_buckets(codes: torch.Tensor, range_id: torch.Tensor,
                   upper: torch.Tensor, hash_bits: int,
                   eps: float = DEFAULT_EPS, *,
-                  rank: Optional[torch.Tensor] = None) -> BucketIndex:
+                  rank: Optional[torch.Tensor] = None,
+                  packed: bool = True) -> BucketIndex:
     """Assemble the CSR store from raw index arrays (host numpy), on the
-    device of ``codes``. ``rank`` overrides the eq.-12 rank table."""
+    device of ``codes``. ``rank`` overrides the eq.-12 rank table.
+    ``packed``: the codes are sign-bit words, sorted as the reference's
+    uint32 words; else signed integer hashes (L2-ALSH), sorted signed."""
     device = codes.device
     c = codes.cpu().numpy()
     rid = range_id.cpu().numpy().astype(np.int64)
     n, w = c.shape
-    # sort keys are the unsigned words: an int32 word with bit 31 set is
-    # negative and would sort before the small codes
-    words = c.view(np.uint32).astype(np.int64)
+    # packed words sort unsigned: an int32 word with bit 31 set is negative
+    # and would sort before the small codes
+    words = (c.view(np.uint32) if packed else c).astype(np.int64)
     keys = [words[:, j] for j in range(w - 1, -1, -1)] + [rid]
     order = np.lexsort(tuple(keys))          # stable: ties keep item id
     c_s = c[order]
@@ -118,7 +121,16 @@ def build_buckets(codes: torch.Tensor, range_id: torch.Tensor,
 def build_bucket_index(index) -> BucketIndex:
     """The bucket store of a :class:`~repro_torch.core.index.ComposedIndex`
     (its family score table defines the probe rank)."""
+    if index.codes.ndim == 3:
+        raise ValueError("multi-table single-probe has no bucket store; "
+                         "query it via its own candidate_scores/query")
     return build_buckets(index.codes, index.range_id, index.upper_eff,
                          index.hash_bits, index.eps,
-                         rank=rank_from_scores(index.table))
+                         rank=rank_from_scores(index.table),
+                         packed=index.family.packed)
+
+
+def bucket_sizes(bidx: BucketIndex) -> torch.Tensor:
+    """(B,) int32 item count per bucket."""
+    return bidx.bucket_start[1:] - bidx.bucket_start[:-1]
 

@@ -40,6 +40,13 @@ def select_engine(num_buckets: int, num_items: int) -> str:
     return "bucket" if num_buckets < AUTO_DENSE_RATIO * num_items else "dense"
 
 
+def encode_queries(index, queries: torch.Tensor, *,
+                   impl: str = "auto") -> torch.Tensor:
+    """Hash queries under the index's family: its asymmetric query
+    transform, then its hash (packed sign codes or integer hashes)."""
+    return index.family.encode_queries(index.params, queries, impl=impl)
+
+
 def _directory_order(buckets: BucketIndex, q_codes: torch.Tensor,
                      match_fn) -> torch.Tensor:
     """(Q, B) probe-ordered bucket indices: directory match -> per-bucket
@@ -342,8 +349,7 @@ class QueryEngine:
                                        idx.hash_bits, impl=self.impl)
 
     def _encode(self, queries: torch.Tensor) -> torch.Tensor:
-        return self.index.family.encode_queries(self.index.params, queries,
-                                                impl=self.impl)
+        return encode_queries(self.index, queries, impl=self.impl)
 
     def candidates(self, queries: torch.Tensor,
                    num_probe: Optional[int] = None, *,

@@ -6,6 +6,14 @@ scheme and a query engine; :func:`build` turns it into a
 
     build(IndexSpec(family="simple", code_len=32, m=32), items, gen)
         == the paper's RANGE-LSH (Algorithm 1)
+    build(IndexSpec(family="simple", code_len=32), items, gen)
+        == SIMPLE-LSH (the m = 1 case)
+    build(IndexSpec(family="l2_alsh", code_len=32, m=16), items, gen)
+        == the §5 norm-ranged L2-ALSH
+    build(IndexSpec(family="sign_alsh", code_len=32, m=16), items, gen)
+        == ranged SIGN-ALSH
+    build(IndexSpec(..., num_tables=8), items, gen)
+        == multi-table single-probe over any family
 
 With a ``recall_target`` the build also calibrates the planner, and
 queries that name no budget are planned to meet the target.
@@ -15,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,6 +33,7 @@ from repro_torch.core.family import FAMILY_NAMES, HashFamily, get_family
 from repro_torch.core.partition import effective_upper, partition_by_scheme
 from repro_torch.core.probe import DEFAULT_EPS
 from repro_torch.core.topk import rerank
+from repro_torch.kernels.ref import full_f32, stable_topk
 
 SCHEMES = ("percentile", "uniform")
 ENGINES = ("auto", "dense", "bucket", "fused")
@@ -41,20 +50,20 @@ class IndexSpec:
     """Declarative index description.
 
     Attributes:
-      family:    base hash family ("simple"; the ALSH families are not
-                 ported yet).
+      family:    base hash family ("simple" | "l2_alsh" | "sign_alsh").
       code_len:  total code budget L.
       m:         number of norm ranges (1 = un-partitioned).
       scheme:    "percentile" (Algorithm 1) | "uniform" (Fig 3a).
       engine:    default query engine ("dense" | "bucket" | "fused" |
                  "auto").
       impl:      kernel dispatch ("auto" | "cuda" | "ref").
-      num_tables: must be 1 here (multi-table is not ported yet).
+      num_tables: T > 1 builds multi-table single-probe.
       eps:       eq.-12 slack.
       recall_target: default recall contract; ``build`` calibrates.
       charge_index_bits: override the family's §4 protocol.
-      alsh_m/alsh_U/alsh_r: ALSH overrides, validated as the reference
-                 does.
+      alsh_m/alsh_U/alsh_r: ALSH transform order / scaling /
+                 quantization width overrides (None = the family's
+                 recommended values).
     """
 
     family: str = "simple"
@@ -72,7 +81,8 @@ class IndexSpec:
     alsh_r: Optional[float] = None
 
     def resolve_family(self) -> HashFamily:
-        return get_family(self.family)
+        return get_family(self.family, alsh_m=self.alsh_m,
+                          alsh_U=self.alsh_U, alsh_r=self.alsh_r)
 
     @property
     def charges(self) -> bool:
@@ -171,12 +181,14 @@ class ComposedIndex(NamedTuple):
       spec:      the IndexSpec that built it.
       items:     (N, d) item vectors.
       norms:     (N,) item 2-norms.
-      codes:     (N, W) int32 packed codes.
+      codes:     (N, W) int32 packed codes, or (N, K) int32 hashes
+                 for L2-ALSH.
       range_id:  (N,) int32 sub-dataset of each item.
       upper:     (R,) raw per-range max 2-norm U_j (0 for empty ranges).
       upper_eff: (R,) U_j with empty ranges mapped to the global max.
       lower:     (R,) min 2-norm per range.
-      params:    (d+1, L) SIMPLE-LSH projections.
+      params:    the family's parameters: a projection matrix ((d+1, L)
+                 SIMPLE-LSH, (d+m, L) SIGN-ALSH) or L2-ALSH's (a, b).
       table:     (R, L+1) score per (range, match count).
       hash_bits: number of hash functions drawn.
       calib:     optional :class:`~repro_torch.core.planner.CalibrationTable`.
@@ -190,7 +202,7 @@ class ComposedIndex(NamedTuple):
     upper: torch.Tensor
     upper_eff: torch.Tensor
     lower: torch.Tensor
-    params: torch.Tensor
+    params: object
     table: torch.Tensor
     hash_bits: int
     calib: Optional[object] = None
@@ -198,6 +210,14 @@ class ComposedIndex(NamedTuple):
     @property
     def family(self) -> HashFamily:
         return self.spec.resolve_family()
+
+    @property
+    def num_ranges(self) -> int:
+        return self.upper.shape[0]
+
+    @property
+    def code_len(self) -> int:
+        return self.spec.code_len
 
     @property
     def eps(self) -> float:
@@ -278,6 +298,73 @@ class ComposedIndex(NamedTuple):
         return rerank(queries, self.items, cand, int(k))
 
 
+class ComposedMultiTable(NamedTuple):
+    """Multi-table single-probe: T independent parameter draws over the
+    (range-)normalized items; a candidate is any item whose hashes all
+    match the query's in at least one table.
+
+    ``upper`` is the effective per-range bound (the score scaling needs a
+    nonzero value); ``codes`` stacks the T tables' codes (T, N, ...)."""
+
+    spec: IndexSpec
+    items: torch.Tensor
+    norms: torch.Tensor
+    codes: torch.Tensor
+    range_id: torch.Tensor
+    upper: torch.Tensor
+    lower: torch.Tensor
+    params: Tuple[object, ...]
+    hash_bits: int
+
+    @property
+    def family(self) -> HashFamily:
+        return self.spec.resolve_family()
+
+    @property
+    def num_tables(self) -> int:
+        return self.codes.shape[0]
+
+    def candidate_scores(self, queries: torch.Tensor) -> torch.Tensor:
+        """(Q, N) f32 number of tables with a full-hash match, scaled by
+        the item's range bound when partitioned (0 = not a candidate)."""
+        fam = self.family
+        counts = torch.zeros((queries.shape[0], self.items.shape[0]),
+                             dtype=torch.int32, device=self.items.device)
+        for t in range(self.num_tables):
+            qc = fam.encode_queries(self.params[t], queries,
+                                    impl=self.spec.impl)
+            matches = fam.match_counts(self.params[t], qc, self.codes[t],
+                                       self.hash_bits, impl=self.spec.impl)
+            counts += (matches == self.hash_bits).to(torch.int32)
+        scores = counts.to(torch.float32)
+        if self.spec.ranged:
+            scores = scores * self.upper[self.range_id.long()][None, :]
+        return scores
+
+    def query(self, queries: torch.Tensor, k: int, *,
+              max_candidates: int = 512
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Exact re-rank of the first ``max_candidates`` items by score,
+        restricted to true candidates (score > 0). Returns (vals, int32
+        ids, int32 candidate counts (Q,)); slots past a query's candidate
+        count come back as (-inf, -1). Equal scores keep item-id order and
+        equal inner products go to the first position, as the
+        reference's stable argsort and ``lax.top_k``."""
+        scores = self.candidate_scores(queries)
+        n_cand = torch.sum(scores > 0, dim=1, dtype=torch.int32)
+        order = torch.argsort(-scores, dim=1, stable=True)
+        top = order[:, :max_candidates]                        # (Q, C)
+        top_scores = torch.gather(scores, 1, top)
+        with full_f32():
+            ip = torch.einsum("qd,qcd->qc", queries.to(torch.float32),
+                              self.items[top])
+        ip = torch.where(top_scores > 0, ip, float("-inf"))
+        vals, pos = stable_topk(ip, int(k))
+        ids = torch.gather(top, 1, pos)
+        ids = torch.where(torch.isfinite(vals), ids, -1)
+        return vals, ids.to(torch.int32), n_cand
+
+
 def _partition(norms: torch.Tensor, spec: IndexSpec):
     """(range_id, raw upper, effective upper, lower) per the spec."""
     if spec.m > 1:
@@ -290,33 +377,47 @@ def _partition(norms: torch.Tensor, spec: IndexSpec):
     return rid, upper, upper, torch.min(norms)[None]
 
 
-def build(spec: IndexSpec, items, generator: Optional[torch.Generator] = None,
-          *, params: Optional[torch.Tensor] = None, strict: bool = True,
-          calibration_queries=None, calibration_k: Optional[int] = None,
-          device=None) -> ComposedIndex:
-    """Build a :class:`ComposedIndex` on ``device`` (the card unless
+def build(spec: IndexSpec, items, generator=None, *, params=None,
+          strict: bool = True, calibration_queries=None,
+          calibration_k: Optional[int] = None, device=None):
+    """Build a :class:`ComposedIndex` (a :class:`ComposedMultiTable` when
+    ``spec.num_tables > 1``) on ``device`` (the card unless
     ``device="cpu"``).
 
-    ``generator`` draws the projections (unless ``params`` hands them in)
+    ``generator`` draws the hash parameters (unless ``params`` hands them
+    in: the family's tensors or arrays, a pair ``(a, b)`` for L2-ALSH)
     and, when the spec has a ``recall_target`` and no
-    ``calibration_queries`` are given, the calibration queries."""
+    ``calibration_queries`` are given, the calibration queries. With T
+    tables, ``generator`` is one generator that draws the T parameter
+    sets in turn or a sequence of T, and ``params`` a sequence of T
+    parameter sets."""
     spec.validate(strict=strict)
-    if spec.num_tables > 1:
-        raise ValueError("multi-table single-probe is not ported yet")
     device = resolve_device(device)
     fam = spec.resolve_family()
     items = torch.as_tensor(items, dtype=torch.float32, device=device)
     norms = hashing.l2_norm(items)
     rid, upper, upper_eff, lower = _partition(norms, spec)
     hash_bits = spec.hash_bits
+    upper_per_item = upper_eff[rid.long()]
+    dim = int(items.shape[-1])
+    if spec.num_tables > 1:
+        if calibration_queries is not None or calibration_k is not None:
+            raise ValueError("multi-table single-probe has no probe "
+                             "budget to plan; calibration does not apply")
+        tables = _table_params(fam, spec.num_tables, generator, params,
+                               dim, hash_bits, device)
+        codes = torch.stack([
+            fam.encode_items(p, items, upper_per_item, impl=spec.impl)
+            for p in tables])
+        return ComposedMultiTable(spec, items, norms, codes, rid,
+                                  upper_eff, lower, tables, hash_bits)
     if params is None:
         if generator is None:
             raise ValueError("pass a generator (or params) to draw the "
-                             "hash projections")
-        params = fam.make_params(generator, int(items.shape[-1]), hash_bits,
-                                 device=device)
-    params = torch.as_tensor(params, dtype=torch.float32, device=device)
-    codes = fam.encode_items(params, items, upper_eff[rid], impl=spec.impl)
+                             "hash parameters")
+        params = fam.make_params(generator, dim, hash_bits, device=device)
+    params = fam.params_on(params, device)
+    codes = fam.encode_items(params, items, upper_per_item, impl=spec.impl)
     table = fam.score_table(upper_eff, hash_bits, eps=spec.eps)
     cidx = ComposedIndex(spec, items, norms, codes, rid, upper, upper_eff,
                          lower, params, table, hash_bits)
@@ -329,3 +430,25 @@ def build(spec: IndexSpec, items, generator: Optional[torch.Generator] = None,
                else int(calibration_k)),
             generator=generator))
     return cidx
+
+
+def _table_params(fam: HashFamily, num_tables: int, generator,
+                  params: Optional[Sequence], dim: int, hash_bits: int,
+                  device) -> Tuple[object, ...]:
+    """The T parameter sets of a multi-table build: handed in, or drawn
+    from one generator in turn or from T generators."""
+    if params is not None:
+        if len(params) != num_tables:
+            raise ValueError(f"{len(params)} parameter sets for "
+                             f"num_tables={num_tables}")
+        return tuple(fam.params_on(p, device) for p in params)
+    if generator is None:
+        raise ValueError("pass a generator (or params) to draw the hash "
+                         "parameters")
+    gens = (generator if isinstance(generator, (list, tuple))
+            else [generator] * num_tables)
+    if len(gens) != num_tables:
+        raise ValueError(f"{len(gens)} generators for "
+                         f"num_tables={num_tables}")
+    return tuple(fam.make_params(g, dim, hash_bits, device=device)
+                 for g in gens)

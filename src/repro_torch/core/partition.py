@@ -23,6 +23,10 @@ class Partition(NamedTuple):
     lower: torch.Tensor
     counts: torch.Tensor
 
+    @property
+    def num_ranges(self) -> int:
+        return self.upper.shape[0]
+
 
 def _range_stats(norms: torch.Tensor, range_id: torch.Tensor,
                  m: int) -> Partition:
@@ -59,6 +63,12 @@ def uniform_partition(norms: torch.Tensor, m: int) -> Partition:
     range_id = torch.clamp(((norms - lo) / width * m).to(torch.int32),
                            0, m - 1)
     return _range_stats(norms, range_id, m)
+
+
+def single_partition(norms: torch.Tensor) -> Partition:
+    """Degenerate m = 1 partition: SIMPLE-LSH as a special case of
+    RANGE-LSH."""
+    return percentile_partition(norms, 1)
 
 
 def effective_upper(part: Partition) -> torch.Tensor:

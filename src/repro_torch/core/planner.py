@@ -10,21 +10,30 @@ items in canonical (rank, CSR position) order.
 The (Q, N) work of calibration runs as torch ops on the index's device,
 a block of queries at a time and with int32 positions; the curves and the
 greedy planning loop are small and stay on the host in numpy.
+
+:func:`adaptive_query` walks the planned candidates grouped by descending
+range cap and stops a query once its running k-th exact inner product
+meets the best score any unprobed candidate could reach (``||q|| U_j``
+for sign families): the same top-k as the full planned re-rank, with
+the provably futile tail of the budget skipped.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import topk
+from repro_torch.core import hashing, topk
+from repro_torch.kernels.ref import full_f32
 
 DEFAULT_CAL_QUERIES = 256
 DEFAULT_CAL_K = 10
 GRID_FACTOR = 1.3
 CAL_CHUNK = 32            # queries per (chunk, N) block of the calibration
+ADAPTIVE_CHUNK = 32       # candidates a step of adaptive_query re-ranks
+ADAPTIVE_SYNC_STEPS = 8   # steps between adaptive_query's host checks
 
 
 class CalibrationTable(NamedTuple):
@@ -52,6 +61,10 @@ class CalibrationTable(NamedTuple):
     @property
     def num_items(self) -> int:
         return int(self.range_counts.sum())
+
+    @property
+    def num_ranges(self) -> int:
+        return int(self.range_counts.shape[0])
 
 
 class Plan(NamedTuple):
@@ -322,3 +335,87 @@ def resolve_budgets(calib: Optional[CalibrationTable],
             "IndexSpec(recall_target=...) or attach planner.calibrate()")
     check_contract_k(calib, k)
     return plan(calib, recall_target)
+
+
+# -- adaptive early termination ----------------------------------------------
+
+
+def adaptive_query(engine, queries, k: int, *,
+                   recall_target: Optional[float] = None,
+                   budgets: Optional[Sequence[int]] = None,
+                   num_probe: Optional[int] = None,
+                   chunk: int = ADAPTIVE_CHUNK
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Planned probing with provable per-query early termination.
+
+    The planned candidates of ``engine`` (a
+    :class:`~repro_torch.core.engine.QueryEngine`) are re-walked grouped
+    by descending range cap (the stable reorder keeps canonical order
+    within a cap), ``chunk`` at a time, each step an exact re-rank merged
+    into the running top-k. A candidate's bound is its range's full-match
+    score-table entry times ``||q||``; the cap-descending walk makes the
+    next candidate's bound the best any unprobed one can reach. A query
+    stops once its k-th value meets that bound, so ``(vals, ids)`` equal
+    the full planned re-rank (up to exact-tie order) and ``probes_used``
+    counts the candidates actually scored. Every ``ADAPTIVE_SYNC_STEPS``
+    steps the host loop reads whether any query is still active, and ends
+    when none is; a step after the last query stopped changes nothing (its
+    scores are -inf, its count 0), so the results do not depend on how
+    often it reads.
+
+    Returns ``(vals, ids, probes_used)``: (Q, k) f32, (Q, k) int32 (-1
+    past the finite values) and (Q,) int32."""
+    index = engine.index
+    if recall_target is not None:
+        if budgets is not None or num_probe is not None:
+            raise ValueError("pass one of recall_target/budgets/num_probe")
+        budgets = resolve_budgets(getattr(index, "calib", None),
+                                  recall_target, k=k).budgets
+    if (budgets is None) == (num_probe is None):
+        raise ValueError("pass exactly one of budgets/num_probe "
+                         "(or recall_target)")
+    items = index.items
+    queries = torch.as_tensor(queries, dtype=torch.float32,
+                              device=items.device)
+    if budgets is not None:
+        cand = engine.candidates(queries, budgets=budgets)
+    else:
+        cand = engine.candidates(queries, num_probe)
+    p = int(cand.shape[1])
+    k = int(k)
+    if not 0 < k <= p:
+        raise ValueError(f"k={k} outside (0, planned width {p}]")
+
+    # hard per-candidate bound: the full-match score-table entry of its
+    # range (the table rises in l, so the last column), times ||q||
+    cap = index.table[:, -1][index.range_id[cand.long()].long()]
+    reorder = torch.argsort(-cap, dim=-1, stable=True)
+    cand = torch.gather(cand, 1, reorder)
+    bound = torch.gather(cap, 1, reorder).to(torch.float32) \
+        * hashing.l2_norm(queries)[:, None]                    # descending
+    q = queries.shape[0]
+    dev = items.device
+    vals = torch.full((q, k), float("-inf"), dtype=torch.float32,
+                      device=dev)
+    ids = torch.full((q, k), -1, dtype=cand.dtype, device=dev)
+    used = torch.zeros((q,), dtype=torch.int32, device=dev)
+    active = torch.ones((q,), dtype=torch.bool, device=dev)
+    for step, c in enumerate(range(0, p, chunk)):
+        if step % ADAPTIVE_SYNC_STEPS == 0 and not bool(active.any()):
+            break
+        sl = cand[:, c:c + chunk]
+        with full_f32():
+            ip = torch.einsum("qd,qpd->qp", queries, items[sl.long()])
+        ip = torch.where(active[:, None], ip, float("-inf"))
+        # lax.top_k over [vals, ip]: a stable descending sort keeps equal
+        # values in column order
+        av, order = torch.sort(torch.cat([vals, ip], dim=1), dim=1,
+                               descending=True, stable=True)
+        vals = av[:, :k]
+        ids = torch.gather(torch.cat([ids, sl], dim=1), 1, order[:, :k])
+        used += torch.where(active, sl.shape[1], 0).to(torch.int32)
+        if c + chunk >= p:
+            break
+        active &= vals[:, k - 1] < bound[:, c + chunk]
+    ids = torch.where(torch.isfinite(vals), ids, -1)
+    return vals, ids.to(torch.int32), used

@@ -51,3 +51,19 @@ def probe_table(upper: torch.Tensor, code_len: int,
                          device=upper.device).repeat_interleave(code_len + 1)
     l_idx = ls.repeat(m)
     return ProbeTable(j_idx[order], l_idx[order], flat[order])
+
+
+def item_scores(upper: torch.Tensor, range_id: torch.Tensor,
+                hamming: torch.Tensor, code_len: int,
+                eps: float = DEFAULT_EPS) -> torch.Tensor:
+    """Dense eq.-12 score per item (the order of traversing the
+    :class:`ProbeTable`): ``hamming`` (..., n) int32 distances,
+    ``range_id`` (n,) item ranges; higher = probed earlier."""
+    matches = code_len - hamming
+    return similarity_estimate(upper[range_id.long()], matches, code_len,
+                               eps)
+
+
+def hamming_scores(hamming: torch.Tensor) -> torch.Tensor:
+    """SIMPLE-LSH probe order: plain Hamming ranking (higher = better)."""
+    return -hamming.to(torch.float32)

@@ -10,11 +10,17 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.ref import full_f32, stable_topk
 
 EXACT_CHUNK = 64          # queries per (chunk, N) score block in exact_mips
+# bytes of gathered (P, d) candidate rows a re-rank holds at once (here and
+# in the streaming engine's merged re-rank), and of the (Qc, N, K) equality
+# block of L2-ALSH's match count
+RERANK_BYTES = 1 << 30
+RECALL_CHUNK = 64         # queries per (chunk, N) position block
 
 
 def exact_mips(queries: torch.Tensor, items: torch.Tensor, k: int
@@ -31,24 +37,66 @@ def exact_mips(queries: torch.Tensor, items: torch.Tensor, k: int
     return torch.cat(vals), torch.cat(ids)
 
 
-def rerank(queries: torch.Tensor, items: torch.Tensor,
-           cand_ids: torch.Tensor, k: int
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact re-rank of per-query candidates (Q, P) -> (vals, item ids)
-    (Q, k). A repeated id is masked to its first occurrence before the
-    top-k, so one item never claims two result slots."""
-    q, p = cand_ids.shape
-    with full_f32():
-        scores = torch.einsum("qd,qpd->qp", queries, items[cand_ids.long()])
+def _first_occurrence_dups(cand_ids: torch.Tensor) -> torch.Tensor:
+    """(Q, P) bool: True where an id repeats one earlier in its row
+    (stable-sort the ids, flag equal neighbours, scatter back)."""
+    q = cand_ids.shape[0]
     order = torch.argsort(cand_ids, dim=1, stable=True)
     sorted_ids = torch.gather(cand_ids, 1, order)
     dup_sorted = torch.cat(
         [torch.zeros((q, 1), dtype=torch.bool, device=cand_ids.device),
          sorted_ids[:, 1:] == sorted_ids[:, :-1]], dim=1)
-    dup = torch.zeros_like(dup_sorted).scatter_(1, order, dup_sorted)
-    scores = torch.where(dup, torch.finfo(scores.dtype).min, scores)
-    vals, pos = stable_topk(scores, k)
-    return vals, torch.gather(cand_ids, 1, pos)
+    return torch.zeros_like(dup_sorted).scatter_(1, order, dup_sorted)
+
+
+def rerank_blocks(q: int, p: int, d: int, k: int) -> Tuple[int, int]:
+    """(queries, candidates) of one re-rank block: whole rows of queries
+    while their gathered (P, d) f32 rows fit ``RERANK_BYTES``, else one
+    query and as many candidates as fit (never fewer than k)."""
+    max_bytes = RERANK_BYTES
+    row = 4 * d
+    if row * p <= max_bytes:
+        return max(1, min(q, max_bytes // max(1, row * p))), p
+    return 1, min(p, max(k, max_bytes // max(1, row)))
+
+
+def rerank(queries: torch.Tensor, items: torch.Tensor,
+           cand_ids: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact re-rank of per-query candidates (Q, P) -> (vals, item ids)
+    (Q, k). A repeated id is masked to its first occurrence before the
+    top-k, so one item never claims two result slots.
+
+    The candidate rows are gathered a block at a time
+    (:func:`rerank_blocks`), so at most ``RERANK_BYTES`` of them are held.
+    A query whose own rows exceed it is walked in candidate blocks under a
+    running top-k: the kept entries come first in the concatenation, and
+    they all sit at earlier positions, so equal scores still go to the
+    first position, as in one :func:`stable_topk` over the whole row."""
+    q, p = cand_ids.shape
+    qb, pb = rerank_blocks(q, p, items.shape[1], int(k))
+    low = torch.finfo(torch.float32).min
+    vals, ids = [], []
+    for s in range(0, q, qb):
+        cand = cand_ids[s:s + qb]
+        qs = queries[s:s + qb]
+        dup = _first_occurrence_dups(cand)
+        best_v = best_p = None
+        for c in range(0, p, pb):
+            block = cand[:, c:c + pb]
+            with full_f32():
+                scores = torch.einsum("qd,qpd->qp", qs, items[block.long()])
+            scores = torch.where(dup[:, c:c + pb], low, scores)
+            cols = torch.arange(c, c + block.shape[1],
+                                device=cand.device).expand_as(block)
+            if best_v is not None:
+                scores = torch.cat([best_v, scores], dim=1)
+                cols = torch.cat([best_p, cols], dim=1)
+            best_v, pos = stable_topk(scores, k)
+            best_p = torch.gather(cols, 1, pos)
+        vals.append(best_v)
+        ids.append(torch.gather(cand, 1, best_p))
+    return torch.cat(vals), torch.cat(ids)
 
 
 def recall_at(retrieved: torch.Tensor, truth: torch.Tensor) -> float:
@@ -56,3 +104,42 @@ def recall_at(retrieved: torch.Tensor, truth: torch.Tensor) -> float:
     (Q, P)."""
     hit = (retrieved[:, :, None] == truth[:, None, :]).any(dim=1)
     return float(hit.to(torch.float32).mean())
+
+
+def truth_positions(probe_order: torch.Tensor, truth: torch.Tensor
+                    ) -> torch.Tensor:
+    """(Q, k) int32 position of each truth id in its query's probe order
+    (Q, N), found ``RECALL_CHUNK`` queries at a time so that the (chunk,
+    N) position block stays bounded."""
+    q, n = probe_order.shape
+    out = []
+    for s in range(0, q, RECALL_CHUNK):
+        order = probe_order[s:s + RECALL_CHUNK].long()
+        rows = order.shape[0]
+        pos = torch.empty((rows, n), dtype=torch.int32, device=order.device)
+        pos.scatter_(1, order, torch.arange(
+            n, dtype=torch.int32, device=order.device).expand(rows, n))
+        out.append(torch.gather(pos, 1, truth[s:s + RECALL_CHUNK].to(
+            order.device).long()))
+    return torch.cat(out)
+
+
+def recall_from_positions(positions: torch.Tensor, probe_counts
+                          ) -> torch.Tensor:
+    """(len(probe_counts),) f32 fraction of truth positions below each
+    count: an exact count times the f32 reciprocal of the total, as
+    ``jnp.mean`` of the 0/1 floats gives it."""
+    flat = positions.reshape(-1)
+    inv = float(np.float32(1.0) / np.float32(flat.numel()))
+    hits = [int((flat < int(c)).sum()) for c in probe_counts]
+    return torch.tensor(hits, dtype=torch.float32) * inv
+
+
+def probed_recall_curve(probe_order: torch.Tensor, truth: torch.Tensor,
+                        probe_counts) -> torch.Tensor:
+    """Recall@T of the probing order for each T in ``probe_counts``: the
+    fraction of the top-k ``truth`` ids (Q, k) among the first T entries
+    of ``probe_order`` (Q, N), the paper's Fig. 2 curves. Returns a
+    (len(probe_counts),) f32 tensor on the host."""
+    return recall_from_positions(truth_positions(probe_order, truth),
+                                 probe_counts)

@@ -57,6 +57,10 @@ _PROFILES: Dict[str, Tuple[int, int, Callable]] = {
 }
 
 
+def profile_names():
+    return sorted(_PROFILES)
+
+
 def make_dataset(name: str, seed: int = 0, *, n: Optional[int] = None,
                  d: Optional[int] = None, num_queries: int = 1000,
                  device=None) -> MIPSDataset:

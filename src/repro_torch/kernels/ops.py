@@ -144,9 +144,17 @@ def hash_encode(x: torch.Tensor, A: torch.Tensor,
     N, d = x.shape
     L = A.shape[1]
     _require_nonempty("hash_encode", N=N, d=d, L=L)
+    if A.shape[0] != d:
+        raise ValueError(f"hash_encode: A {tuple(A.shape)} must have d={d} "
+                         f"rows for x {tuple(x.shape)}")
+    if (tail is None) != (a_tail is None):
+        raise ValueError("hash_encode: pass tail and a_tail together")
     if tail is None:
         tail = torch.zeros((N,), dtype=x.dtype, device=x.device)
         a_tail = torch.zeros((L,), dtype=x.dtype, device=x.device)
+    elif tuple(tail.shape) != (N,) or tuple(a_tail.shape) != (L,):
+        raise ValueError(f"hash_encode: tail {tuple(tail.shape)} and a_tail "
+                         f"{tuple(a_tail.shape)} must be ({N},) and ({L},)")
     impl = _resolve(impl, "hash_encode", x, A, tail, a_tail)
     if impl == "ref":
         return _ref.hash_encode_ref(x, A, tail, a_tail)
@@ -394,6 +402,13 @@ def fused_query(queries: torch.Tensor, cum: torch.Tensor,
     total = int(total)
     k = int(k)
     _require_nonempty("fused_query", Q=Q, d=d, S=S, N=N, k=k, total=total)
+    if items.shape[1] != d:
+        raise ValueError(f"fused_query: items {tuple(items.shape)} must "
+                         f"have the queries' d={d} columns")
+    if cum.shape[0] != Q or tuple(starts.shape) != (Q, S):
+        raise ValueError(f"fused_query: cum {tuple(cum.shape)} and starts "
+                         f"{tuple(starts.shape)} must be (Q, S+1) and (Q, S) "
+                         f"for Q={Q} queries")
     if k > total:
         raise ValueError(f"k={k} must not exceed the planned probe "
                          f"width total={total}")

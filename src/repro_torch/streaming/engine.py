@@ -29,13 +29,11 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.topk import RERANK_BYTES
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import full_f32, stable_topk
 
 RANK_SENTINEL = torch.iinfo(torch.int32).max
-
-# bytes of gathered (P, d) rows per query chunk of merged_rerank
-RERANK_BYTES = 1 << 30
 
 
 def bucket_runs(arrs: Dict[str, torch.Tensor], q_codes: torch.Tensor,

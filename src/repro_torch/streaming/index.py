@@ -145,6 +145,10 @@ class MutableIndex:
             raise ValueError("trackers are not ported to repro_torch yet "
                              "(repro.obs); pass tracker=None")
         self.family = SimpleLSHFamily() if family is None else family
+        if not self.family.packed:
+            raise ValueError(
+                f"streaming indexes need packed sign codes; family "
+                f"{self.family.name!r} produces integer hashes")
         self.device = resolve_device(device)
         self.items = torch.as_tensor(items, dtype=torch.float32,
                                      device=self.device)
@@ -199,7 +203,8 @@ class MutableIndex:
     @classmethod
     def from_composed(cls, cidx, **kw) -> "MutableIndex":
         """Mount a spec-built :class:`repro_torch.core.index.ComposedIndex`
-        (flat with m = 1, or ranged) on the index's device."""
+        of a packed family (SIMPLE-LSH or SIGN-ALSH), flat with m = 1 or
+        ranged, on the index's device."""
         norms = _host(cidx.norms)
         return cls(items=cidx.items, norms=norms,
                    codes=_host(cidx.codes).view(np.uint32),

@@ -26,11 +26,25 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core.family import (HashFamily, SignALSHFamily,
+                                     SimpleLSHFamily)
 from repro_torch.streaming.index import MutableIndex, _host
 
 # family registry for snapshots (manifest leaves are arrays, so the family
 # rides as a small integer; absent in pre-family snapshots => simple)
 FAMILY_IDS = {"simple": 0, "sign_alsh": 1}
+
+
+def family_from_meta(meta) -> HashFamily:
+    """The snapshot's hash family from its ``meta`` leaves: SIGN-ALSH
+    (``family_id`` 1) with its ``fam_m`` and ``fam_U``, else SIMPLE-LSH."""
+    fid = int(meta.get("family_id", 0))
+    if fid == FAMILY_IDS["sign_alsh"]:
+        return SignALSHFamily(m=int(meta["fam_m"]), U=float(meta["fam_U"]))
+    if fid != FAMILY_IDS["simple"]:
+        raise ValueError(f"unknown snapshot family_id {fid}; expected one "
+                         f"of {sorted(FAMILY_IDS.values())}")
+    return SimpleLSHFamily()
 
 
 def index_tree(mindex: MutableIndex) -> Dict[str, Any]:

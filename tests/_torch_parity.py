@@ -86,3 +86,37 @@ def imports_of(path: Path) -> set:
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.add(node.module.split(".")[0])
     return names
+
+
+def mismatched_shape_calls(device):
+    """Calls of the wrappers whose arguments' shapes disagree (the cases
+    the CUDA kernels would read out of bounds on): name -> fn(impl)."""
+    from repro_torch.kernels import ops
+
+    def f(*shape):
+        return torch.ones(shape, device=device)
+
+    def i(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+
+    cum = torch.tensor([[0, 2, 4]] * 2, dtype=torch.int32, device=device)
+    return {
+        "hash_encode_A_rows": lambda impl: ops.hash_encode(
+            f(6, 8), f(12, 32), impl=impl),
+        "hash_encode_tail": lambda impl: ops.hash_encode(
+            f(6, 8), f(8, 32), f(5), f(32), impl=impl),
+        "hash_encode_a_tail": lambda impl: ops.hash_encode(
+            f(6, 8), f(8, 32), f(6), f(31), impl=impl),
+        "fused_query_items_d": lambda impl: ops.fused_query(
+            f(2, 4), cum, i(2, 2), f(8, 5), 4, 2, impl=impl),
+        "fused_query_cum_rows": lambda impl: ops.fused_query(
+            f(2, 4), torch.cat([cum, cum[:1]]), i(2, 2), f(8, 4), 4, 2,
+            impl=impl),
+        "fused_query_starts": lambda impl: ops.fused_query(
+            f(2, 4), cum, i(3, 2), f(8, 4), 4, 2, impl=impl),
+    }
+
+
+MISMATCHED = ("hash_encode_A_rows", "hash_encode_tail", "hash_encode_a_tail",
+              "fused_query_items_d", "fused_query_cum_rows",
+              "fused_query_starts")

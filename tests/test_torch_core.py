@@ -192,6 +192,45 @@ def test_rerank_masks_duplicate_ids_like_reference():
         assert len(set(row.tolist())) == row.size
 
 
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("max_bytes,blocks", [
+    (4 * 8 * 30 * 3, (3, 30)),       # three queries a block
+    (4 * 8 * 30, (1, 30)),           # one query a block
+    (4 * 8 * 12, (1, 12)),           # one query in candidate blocks
+    (4 * 8 * 2, (1, 7)),             # blocks never narrower than k
+])
+def test_rerank_blocks_give_the_unchunked_result(max_bytes, blocks,
+                                                 integer, monkeypatch):
+    """A budget that forces query blocks, then candidate blocks under the
+    running top-k, returns exactly the one-block result: duplicates
+    masked to their first occurrence, and exact ties (every item appears
+    twice, integer rows score exactly) to the first position."""
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((40, 8))
+    q = rng.standard_normal((7, 8))
+    if integer:
+        x, q = np.round(2 * x), np.round(2 * q)
+    items = t(np.concatenate([x, x]), np.float32)
+    cand = t(rng.integers(0, 80, size=(7, 30)), np.int32)
+    cand[:, 9] = cand[:, 2]
+    want = topk.rerank(t(q, np.float32), items, cand, 7)
+    monkeypatch.setattr(topk, "RERANK_BYTES", max_bytes)
+    assert topk.rerank_blocks(7, 30, 8, 7) == blocks
+    got = topk.rerank(t(q, np.float32), items, cand, 7)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for row in got[1].numpy():
+        assert len(set(row.tolist())) == row.size
+
+
+def test_rerank_blocks_stay_within_the_budget_at_any_width():
+    """Every width ``_check_probe`` accepts on the slice-1 index, up to
+    N, gathers at most RERANK_BYTES of rows at a time."""
+    for p in (1, 10, 73_136, 1_000_000, 2_340_373):
+        qb, pb = topk.rerank_blocks(64, p, 150, 10)
+        assert 4 * 150 * qb * pb <= topk.RERANK_BYTES
+        assert pb == p or qb == 1
+
+
 def test_recall_at_matches_reference():
     rng = np.random.default_rng(13)
     got = rng.integers(0, 40, size=(10, 12))

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_topk_tie_aware, make_runs
+from _torch_parity import (MISMATCHED, assert_topk_tie_aware, make_runs,
+                           mismatched_shape_calls)
 from repro_torch.core.engine import quantize_payload
 from repro_torch.kernels import ops
 
@@ -383,3 +384,15 @@ def test_bucket_gather_kernel_equals_plain(cuda_device, q, s, empty, most,
     got = ops.bucket_gather(cum, starts, P, impl="cuda")
     assert got.shape == (q, P)
     assert torch.equal(got, ops.bucket_gather(cum, starts, P, impl="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["auto", "cuda"])
+@pytest.mark.parametrize("case", MISMATCHED)
+def test_mismatched_shapes_raise_before_any_launch(cuda_device, case, impl):
+    call = mismatched_shape_calls(cuda_device)[case]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="must"):
+        call(impl)
+    assert not any(ops.launch_counts.values())

@@ -201,12 +201,20 @@ def test_index_spec_validate_raises_like_reference(kwargs):
 
 
 def test_impl_values_and_unported_families():
+    """The port's impl names, and every family of the reference resolves,
+    its ALSH overrides included (both ALSH families were once refused)."""
+    from repro.core.family import get_family as j_get_family
     with pytest.raises(ValueError, match="unknown impl 'pallas'"):
         IndexSpec(impl="pallas").validate()
     IndexSpec(impl="cuda").validate()
     for name in ("l2_alsh", "sign_alsh"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            get_family(name)
+        for kw in ({}, {"alsh_m": 4, "alsh_U": 0.6, "alsh_r": 1.5}):
+            want = j_get_family(name, **kw)
+            got = IndexSpec(family=name, **kw).validate().resolve_family()
+            assert got == get_family(name, **kw)
+            assert (got.name, got.packed, got.m, got.U) == \
+                (want.name, want.packed, want.m, want.U)
+            assert getattr(got, "r", None) == getattr(want, "r", None)
 
 
 def test_make_dataset_profiles_on_cpu():

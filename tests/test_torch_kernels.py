@@ -16,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (assert_codes_match, assert_topk_tie_aware,
-                           make_runs, t, u32_to_i32)
+from _torch_parity import (MISMATCHED, assert_codes_match,
+                           assert_topk_tie_aware, make_runs,
+                           mismatched_shape_calls, t, u32_to_i32)
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops, ref
 
@@ -417,6 +418,15 @@ def _zero_size_calls():
 def test_zero_size_inputs_raise_value_error(op):
     with pytest.raises(ValueError, match="zero-size"):
         _zero_size_calls()[op]()
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref"])
+@pytest.mark.parametrize("case", MISMATCHED)
+def test_mismatched_shapes_raise_value_error_on_every_impl(case, impl):
+    """Arguments whose shapes disagree raise before any dispatch: the
+    plain path too (it would have read the first d rows of a taller A)."""
+    with pytest.raises(ValueError, match="must"):
+        mismatched_shape_calls("cpu")[case](impl)
 
 
 def _fused_args():

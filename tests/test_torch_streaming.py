@@ -405,11 +405,102 @@ def test_top_bit_codes_match_reference(data):
             got, rebuild_candidates(pmi, t(q), 90, engine))
 
 
-def test_sign_alsh_snapshot_is_refused(run):
-    tree = _tree(run[0])
-    tree["meta"]["family_id"] = np.asarray(1, np.int32)
-    with pytest.raises(ValueError, match="not yet ported"):
-        convert.mutable_index_from_tree(tree, device="cpu")
+@pytest.fixture(scope="module")
+def sign_run(data):
+    """A ranged SIGN-ALSH index built by the reference, mounted in both
+    packages (the port through ``index_tree``), then the same inserts,
+    deletes, an overflow and a compaction on both; per-stage merged
+    candidates of both engines, and the rebuild oracle's."""
+    from repro.core import index as jindex
+    items, q, pool = data
+    jidx = jindex.build(jindex.IndexSpec(family="sign_alsh", code_len=16,
+                                         m=4, impl="ref"),
+                        jnp.asarray(items), jax.random.PRNGKey(6))
+    jmi = jstreaming.MutableIndex.from_composed(jidx, capacity=32,
+                                                max_tombstones=8)
+    pmi = convert.mutable_index_from_tree(_tree(jmi), device="cpu")
+    stages = {"fresh": _snapshot(jmi, pmi, q)}
+
+    def both(fn):
+        return fn(jmi, jnp.asarray), fn(pmi, t)
+
+    ids, pids = both(lambda m, f: m.insert(f(pool[:20])))
+    np.testing.assert_array_equal(ids, pids)
+    both(lambda m, f: m.delete([1, 9, int(ids[3]), int(ids[11])]))
+    stages["insert_delete"] = _snapshot(jmi, pmi, q)
+    big = pool[20:21] / np.linalg.norm(pool[20]) * float(jmi.upper.max()) * 2
+    both(lambda m, f: m.insert(f(big)))
+    both(lambda m, f: m.insert(f(pool[21:40])))    # fills and compacts
+    stages["overflow_compact"] = _snapshot(jmi, pmi, q)
+    return jmi, pmi, stages
+
+
+@pytest.mark.parametrize("stage", ["fresh", "insert_delete",
+                                   "overflow_compact"])
+def test_sign_alsh_interleaving_equals_reference_and_rebuild(sign_run,
+                                                             stage):
+    """SIGN-ALSH codes come from the port's ``hash_encode`` (inserts) and
+    its delta from ``delta_scan``: state and merged candidates equal the
+    reference's and a rebuild of the live set."""
+    snap = sign_run[2][stage]
+    for engine in ("bucket", "dense"):
+        want, got = snap["cand"][engine]
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, snap["oracle"][engine])
+    (jstate, jstats, _), (pstate, pstats, _) = snap["state"]
+    for field, want in jstate.items():
+        if field in FLOAT_FIELDS:
+            np.testing.assert_allclose(pstate[field], want, rtol=NORM_RTOL,
+                                       err_msg=field)
+        else:
+            np.testing.assert_array_equal(pstate[field], want, err_msg=field)
+    assert pstats == jstats
+    if stage == "overflow_compact":
+        assert {"overflow_localized", "compaction"} <= {
+            e["kind"] for e in sign_run[1].events}
+
+
+def test_sign_alsh_snapshot_is_refused(sign_run, data, tmp_path):
+    """SIGN-ALSH snapshots, once refused, now cross both ways with
+    ``family_id`` 1 and the family's ``fam_m``/``fam_U``: the mounted
+    index answers with the same candidates and query results."""
+    jmi, pmi, _ = sign_run
+    q = data[1]
+    assert pmi.family.name == "sign_alsh"
+    assert (pmi.family.m, pmi.family.U) == (jmi.family.m, jmi.family.U)
+    tree = streaming.index_tree(pmi)
+    assert int(tree["meta"]["family_id"]) == 1
+    jstreaming.save_index(JaxManager(str(tmp_path / "jax")), 2, jmi)
+    streaming.save_index(CheckpointManager(str(tmp_path / "port")), 3, pmi)
+    mounted_port = streaming.load_index(str(tmp_path / "jax"), device="cpu")
+    mounted_jax = jstreaming.load_index(str(tmp_path / "port"))
+    assert mounted_port.family == pmi.family
+    assert mounted_jax.family.name == "sign_alsh"
+    for engine in ("bucket", "dense"):
+        for m in (jmi, pmi, mounted_port, mounted_jax):
+            m.engine = engine
+        want = np.asarray(jmi.candidates(jnp.asarray(q), 60))
+        np.testing.assert_array_equal(
+            mounted_port.candidates(t(q), 60).numpy(), want)
+        np.testing.assert_array_equal(
+            np.asarray(mounted_jax.candidates(jnp.asarray(q), 60)), want)
+    wv, wi = jmi.query(jnp.asarray(q), 5, 60)
+    gv, gi = mounted_port.query(t(q), 5, 60)
+    assert_topk_tie_aware(gi.numpy(), gv.numpy(), wi, wv)
+    bad = _tree(jmi)
+    bad["meta"]["family_id"] = np.asarray(7, np.int32)
+    with pytest.raises(ValueError, match="unknown snapshot family_id"):
+        convert.mutable_index_from_tree(bad, device="cpu")
+
+
+def test_streaming_refuses_an_unpacked_family(data):
+    from repro_torch.core.family import get_family
+    from repro_torch.core.index import IndexSpec, build
+    cidx = build(IndexSpec(family="l2_alsh", code_len=8, m=2), data[0],
+                 torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="need packed sign codes"):
+        streaming.MutableIndex.from_composed(cidx)
+    assert not get_family("l2_alsh").packed
 
 
 # -- directory placement ------------------------------------------------------
