@@ -86,6 +86,31 @@ Phases, each fatal on failure:
    query runs a few queries at a time), and every ``kernels`` row gets
    its kernel's launches on each path (``launches_by_path``).
 
+6. Observability and the legacy shims at the same N and d. The launch
+   counters are zeroed just before the path and read right after its last
+   call, before any comparison or case input. The path: each arm of phase
+   2 (fused, fused int8, bucket, dense) as a fresh ``QueryEngine`` with a
+   ``Tracker([RingBufferSink()])`` and the kernels' dispatch tracker, over
+   4 batches of 64 at phase 2's budgets; one round of 64 inserts, 16
+   deletes, a compaction and one batch through "auto" and "bucket" on
+   phase 3's index with a tracker set; the SIMPLE-LSH (L 32) and RANGE-LSH
+   (L 32, m 64) shims built and their ``bucket_stats`` (the paper's §3.1
+   balance, a measurement with no limit), a RANGE-LSH bucket-engine query
+   at ``num_probe`` 0.5% of N; the SIGN-ALSH and L2-ALSH shims built and
+   queried densely at that width; a 4-table shim. Then the checks: each
+   tracked batch equals the untracked engine's (``torch.equal``), every
+   stage span of the arm was recorded, ``repro.engine.queries`` counted
+   256, each op's ``.cuda`` dispatch count equals its launches in the
+   arm's window (``fused_query`` counts both builds) and no ``.ref``
+   dispatch appears; the streaming round's events reach the tracker with
+   the drift gauges, and its ids equal the untracked call's; the shims'
+   ids equal indexes built through the spec API on the same parameters,
+   and the multi-table shim equals ``ComposedMultiTable``. Printed: each
+   arm's span p50s and tracked against bare ms per batch, and the event
+   count of a Chrome trace of one fused batch written to
+   ``chiprun_out/obs_fused_batch_trace.json``. Then ``bucket_match`` is
+   held against its plain version at the legacy directory's shape.
+
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside it, the script exits
@@ -133,6 +158,26 @@ ALSH_RECALL = 0.85        # each arm of both ALSH families at target 0.9
 ADAPTIVE_QUERIES = 128    # two batches through adaptive_query
 FIG2_M = 64               # benchmarks/fig2_recall.py's M_FOR_L[32]
 FIG2_FRACTIONS = (0.005, 0.02, 0.10)
+OBS_KERNELS = ("hash_encode", "hamming_scan", "bucket_gather",
+               "fused_query", "fused_query_int8", "bucket_match",
+               "delta_scan")
+OBS_BATCHES = 4           # tracked 64-query batches in each arm
+LEGACY_M = 64             # the RANGE-LSH shim's ranges (Fig. 2's m at L 32)
+LEGACY_PROBE = 0.005      # the legacy queries' num_probe, a share of N
+TRACE_DIR = Path("chiprun_out")
+# every stage span of each arm (the reference's names)
+ARM_SPANS = {
+    "fused": ("repro.engine.query", "repro.engine.hash_encode",
+              "repro.engine.directory_match", "repro.engine.fused_query"),
+    "bucket": ("repro.engine.query", "repro.engine.hash_encode",
+               "repro.engine.directory_match",
+               "repro.engine.segmented_gather", "repro.engine.re_rank",
+               "repro.engine.top_k"),
+    "dense": ("repro.engine.query", "repro.engine.hash_encode",
+              "repro.engine.dense_match", "repro.engine.dense_select",
+              "repro.engine.re_rank", "repro.engine.top_k"),
+}
+ARM_SPANS["fused_int8"] = ARM_SPANS["fused"]
 
 
 def fail(msg: str) -> None:
@@ -395,7 +440,8 @@ def rebuild_candidates(mi, queries, num_probe, engine, match_fn):
 
 def streaming_phase(idx, ops, dev):
     """Phase 3: the streaming service at full size. Returns the launch
-    counts of its path and the inputs of its kernels for phase 4."""
+    counts of its path, the inputs of its kernels for phase 4 and the
+    index (phase 6 drives one more round on it)."""
     import numpy as np
     import torch
     from repro_torch import streaming
@@ -541,7 +587,7 @@ def streaming_phase(idx, ops, dev):
     print(f"stream: candidates equal a from-scratch rebuild (bucket and "
           f"dense, width {width}) and are unchanged across compact() "
           f"({t_compact:.3f} s)")
-    return launches, shapes, inputs
+    return launches, shapes, inputs, mi
 
 
 def truth_ids(ops, queries, items):
@@ -968,6 +1014,256 @@ def alsh_phase(ds, idx, bucket_eng, ops, dev, card):
     return launches, shapes, cases
 
 
+def obs_phase(ds, idx, arms, budgets, mi, ops, dev, card):
+    """Phase 6: observability through the main path and streaming, and
+    the legacy index shims, at N_ITEMS and DIM. The path: each arm of
+    phase 2 as a fresh tracked engine over ``OBS_BATCHES`` batches; one
+    tracked streaming round on phase 3's index; the SIMPLE-LSH and
+    RANGE-LSH shims built, their bucket balance, a RANGE-LSH bucket-engine
+    query; the SIGN-ALSH and L2-ALSH shims built and queried densely; a
+    multi-table shim. The launch counts are copied right after, before
+    any comparison (untracked batches, spec-API indexes) or case input.
+    Returns the path's launch counts and shapes and the phase-4 case of
+    the legacy directory match."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (l2_alsh, multi_table, planner, range_lsh,
+                                  sign_alsh, simple_lsh)
+    from repro_torch.core.bucket_index import build_bucket_index
+    from repro_torch.core.engine import QueryEngine, encode_queries
+    from repro_torch.core.index import IndexSpec, build
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.obs import (RingBufferSink, Tracker,
+                                 chrome_trace_events, validate_chrome_trace)
+
+    qs, items = ds.queries, ds.items
+    batches = [qs[s:s + BATCH] for s in range(0, OBS_BATCHES * BATCH, BATCH)]
+    traffic = make_dataset("imagenet", SEED + 61, n=INSERTS, d=DIM,
+                           num_queries=BATCH)
+    rng = np.random.default_rng(SEED + 60)
+    num_probe = int(N_ITEMS * LEGACY_PROBE)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+
+    # -- tracked engines over the main path --------------------------------
+    tracked = {}
+    for arm, bare in arms.items():
+        tr = Tracker([RingBufferSink(capacity=1 << 16)])
+        eng = QueryEngine(idx, engine=bare.engine, quantized=bare.quantized,
+                          buckets=bare.buckets, tracker=tr)
+        torch.cuda.synchronize()
+        before = dict(ops.launch_counts)
+        ops.set_dispatch_tracker(tr)
+        outs, ms = [], []
+        try:
+            for qb in batches:
+                t0 = time.perf_counter()
+                outs.append(eng.query(qb, K, budgets=budgets))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            ops.set_dispatch_tracker(None)
+        delta = {k: v - before[k] for k, v in ops.launch_counts.items()}
+        tracked[arm] = dict(tracker=tr, outs=outs, ms=ms, launched=delta)
+
+    # -- one tracked streaming round on phase 3's index ---------------------
+    width = planner.plan_global(mi.calib, RECALL_TARGET).num_probe
+    str_tr = Tracker([RingBufferSink(capacity=1 << 16)])
+    mi.set_tracker(str_tr)
+    n_events = len(mi.events)
+    mi.insert(traffic.items[:INSERTS])
+    base = np.flatnonzero(mi._live)
+    dslots = mi.store_size + np.flatnonzero(mi.delta._live[:mi.delta.count])
+    mi.delete(np.concatenate([rng.choice(base, DELETES // 2, replace=False),
+                              rng.choice(dslots, DELETES // 2,
+                                         replace=False)]))
+    mi.compact()                 # a structural event for the tracker
+    sq = traffic.queries[:BATCH]
+    str_out = {}
+    for engine in ("auto", "bucket"):
+        mi.engine = engine
+        str_out[engine] = mi.query(sq, K, width)
+    mi.stats()
+    mi.set_tracker(None)
+
+    # -- the legacy shims ---------------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sl = simple_lsh.build(items, torch.Generator(device=dev).manual_seed(
+        SEED + 62), 32)
+    rl = range_lsh.build(items, torch.Generator(device=dev).manual_seed(
+        SEED + 63), 32, LEGACY_M)
+    torch.cuda.synchronize()
+    t_legacy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = {"simple_lsh": simple_lsh.bucket_stats(sl),
+             f"range_lsh_m{LEGACY_M}": range_lsh.bucket_stats(rl)}
+    t_stats = time.perf_counter() - t0
+    del sl
+    t0 = time.perf_counter()
+    rl_buckets = build_bucket_index(rl)
+    torch.cuda.synchronize()
+    t_store = time.perf_counter() - t0
+    qb = qs[:BATCH]
+    t0 = time.perf_counter()
+    rl_out = range_lsh.query(rl, qb, K, num_probe, engine="bucket",
+                             buckets=rl_buckets)
+    torch.cuda.synchronize()
+    t_rq = time.perf_counter() - t0
+    alsh = {}
+    for s_, (name, mod) in enumerate((("sign_alsh", sign_alsh),
+                                      ("l2_alsh", l2_alsh))):
+        lidx = mod.build(items, torch.Generator(device=dev).manual_seed(
+            SEED + 64 + s_), 32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alsh[name] = (lidx, mod.query(lidx, qb, K, num_probe))
+        torch.cuda.synchronize()
+        print(f"legacy: {name} dense query of {BATCH} at num_probe "
+              f"{num_probe}: {1e3 * (time.perf_counter() - t0):.3f} ms "
+              f"[{card}]")
+    mt = multi_table.build(items, torch.Generator(device=dev).manual_seed(
+        SEED + 66), 16, 4, num_ranges=32)
+    mt_out = multi_table.query(mt, qb, K)
+
+    # the path ends here: its launches, before any comparison
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    shapes = dict(ops.launch_shapes)
+    print(f"launches on the phase-6 path: "
+          f"{ {k: launches[k] for k in OBS_KERNELS} }")
+    idle = [op for op in OBS_KERNELS if launches[op] == 0]
+    if idle:
+        fail(f"kernels never launched on the phase-6 path: {idle}")
+
+    # -- the tracked arms' checks -------------------------------------------
+    for arm, rec in tracked.items():
+        tr, bare = rec["tracker"], arms[arm]
+        bare_ms = []
+        for qb_, (v, i) in zip(batches, rec["outs"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bv, bi = bare.query(qb_, K, budgets=budgets)
+            torch.cuda.synchronize()
+            bare_ms.append(1e3 * (time.perf_counter() - t0))
+            if not (torch.equal(v, bv) and torch.equal(i, bi)):
+                fail(f"obs: tracked {arm} batch differs from the bare one")
+        missing = set(ARM_SPANS[arm]) - set(tr.hists)
+        if missing:
+            fail(f"obs: {arm} recorded no span of {sorted(missing)}")
+        n_q = tr.counters.get("repro.engine.queries")
+        if n_q != OBS_BATCHES * BATCH:
+            fail(f"obs: {arm} counted {n_q} queries, not "
+                 f"{OBS_BATCHES * BATCH}")
+        launched = dict(rec["launched"])
+        launched["fused_query"] += launched.pop("fused_query_int8")
+        counted = {op: int(tr.counters.get(
+            f"repro.kernels.dispatch.{op}.cuda", 0)) for op in launched}
+        refs = sorted(k for k in tr.counters if k.endswith(".ref"))
+        if counted != launched or refs:
+            fail(f"obs: {arm} dispatch counts {counted} != launches "
+                 f"{launched} (ref dispatches {refs})")
+        # p50 is a log-bucket midpoint (within 3.4%); the mean is exact
+        p50 = ", ".join(f"{n.split('.')[-1]} "
+                        f"{1e3 * tr.hists[n].quantile(0.5):.3f}/"
+                        f"{1e3 * tr.hists[n].mean:.3f}"
+                        for n in ARM_SPANS[arm])
+        t_ms, b_ms = statistics.median(rec["ms"]), statistics.median(bare_ms)
+        print(f"obs: {arm:10s} span p50/mean ms: {p50} [{card}]")
+        print(f"obs: {arm:10s} tracked {t_ms:.3f} ms/batch vs bare "
+              f"{b_ms:.3f} (ratio {t_ms / b_ms:.4f}); ids and values "
+              f"equal; dispatch .cuda == launches "
+              f"{ {k: v for k, v in counted.items() if v} }")
+    # the fused arm's last batch as a Chrome trace
+    spans = tracked["fused"]["tracker"].sinks[0].query(type="span")
+    last = max(r["t0"] for r in spans if r["name"] == "repro.engine.query")
+    events = chrome_trace_events([r for r in spans if r["t0"] >= last])
+    trace = {"traceEvents": events, "displayTimeUnit": "ms"}
+    n_pairs = validate_chrome_trace(trace)["span_pairs"]
+    TRACE_DIR.mkdir(exist_ok=True)
+    path = TRACE_DIR / "obs_fused_batch_trace.json"
+    path.write_text(json.dumps(trace))
+    print(f"obs: Chrome trace of one fused batch: {len(events)} events "
+          f"({n_pairs} spans) in {path}")
+    del tracked
+
+    # -- the streaming round's checks ---------------------------------------
+    round_events = mi.events[n_events:]
+    mirrored = [e for e in str_tr.events
+                if e["name"] != "repro.streaming.drift.snapshot"]
+    if [e["name"] for e in mirrored] != [f"repro.streaming.{e['kind']}"
+                                         for e in round_events]:
+        fail(f"obs: streaming events {[e['name'] for e in mirrored]} do not "
+             f"mirror {round_events}")
+    drift = [g for g in str_tr.gauges
+             if g.startswith("repro.streaming.drift.count.")]
+    if not round_events or not drift or not any(
+            e["name"] == "repro.streaming.drift.snapshot"
+            for e in str_tr.events):
+        fail("obs: the drift gauges and snapshot did not arrive")
+    c = str_tr.counters
+    if (c.get("repro.streaming.inserts"), c.get("repro.streaming.deletes"),
+            c.get("repro.streaming.queries")) != (INSERTS, DELETES,
+                                                  2 * BATCH):
+        fail(f"obs: streaming counters {c}")
+    for engine, (v, i) in str_out.items():
+        mi.engine = engine
+        if not torch.equal(i, mi.query(sq, K, width)[1]):
+            fail(f"obs: tracked streaming {engine} ids differ from untracked")
+    mi.engine = "auto"
+    print(f"obs: streaming round: {INSERTS} inserts, {DELETES} deletes, "
+          f"auto and bucket at width {width}: events "
+          f"{[e['name'] for e in str_tr.events]}, {len(drift)} drift count "
+          f"gauges, query span p50/mean "
+          f"{1e3 * str_tr.hists['repro.streaming.query'].quantile(0.5):.3f}/"
+          f"{1e3 * str_tr.hists['repro.streaming.query'].mean:.3f} ms; ids "
+          f"equal untracked [{card}]")
+
+    # -- the legacy shims' checks -------------------------------------------
+    for name, (nb, big) in stats.items():
+        print(f"legacy: {name} L 32 bucket_stats: {nb} occupied buckets, "
+              f"largest {big} items (N {N_ITEMS}) [{card}]")
+    print(f"legacy: builds {t_legacy:.3f} s, bucket_stats {t_stats:.3f} s; "
+          f"RANGE-LSH m {LEGACY_M} bucket store B={rl_buckets.num_buckets} "
+          f"{t_store:.3f} s, bucket query of {BATCH} at num_probe "
+          f"{num_probe} {1e3 * t_rq:.3f} ms [{card}]")
+    cidx = build(IndexSpec(family="simple", code_len=32, m=LEGACY_M,
+                           engine="bucket"), items, params=rl.A)
+    if not torch.equal(cidx.codes, rl.codes):
+        fail("legacy: RANGE-LSH shim codes differ from the spec API's")
+    if not torch.equal(cidx.query(qb, K, num_probe)[1], rl_out[1]):
+        fail("legacy: RANGE-LSH bucket query ids differ from the spec API's")
+    del cidx
+    for name, (lidx, (_, li)) in alsh.items():
+        params = lidx.A if name == "sign_alsh" else (lidx.a, lidx.b)
+        cidx = build(IndexSpec(family=name, code_len=32), items,
+                     params=params)
+        if not torch.equal(cidx.query(qb, K, num_probe)[1].to(li.dtype), li):
+            fail(f"legacy: {name} dense query ids differ from the spec API's")
+        del cidx
+    cmt = build(IndexSpec(family="simple", code_len=16, m=32, num_tables=4),
+                items, params=list(mt.As))
+    if not all(torch.equal(a, b) for a, b in zip(cmt.query(qb, K), mt_out)):
+        fail("legacy: multi_table shim differs from ComposedMultiTable")
+    print(f"legacy: RANGE-LSH bucket, SIGN-ALSH and L2-ALSH dense ids equal "
+          f"the spec API's; multi_table equals ComposedMultiTable (n_cand "
+          f"mean {float(mt_out[2].double().mean()):.1f})")
+    del cmt, mt, alsh
+
+    # -- the legacy directory match at the shape the path gave it -----------
+    q_codes = encode_queries(rl, qb)
+    bcodes, hb = rl_buckets.bucket_code, rl_buckets.hash_bits
+    nb, W = bcodes.shape[0], q_codes.shape[1]
+    cases = {"bucket_match_legacy": dict(
+        call=lambda impl: ops.bucket_match(q_codes, bcodes, hb, impl=impl),
+        bytes=4 * (BATCH * W + nb * W + BATCH * nb),
+        ops=2 * BATCH * nb * W + BATCH * nb, kernel="bucket_match",
+        path="obs", ceiling=(BATCH, nb),
+        source="src/repro_torch/kernels/csrc/hamming.cu",
+        replaces="src/repro/kernels/bucket_probe.py:70")}
+    return launches, shapes, cases
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1090,7 +1386,8 @@ def main() -> int:
                   lambda: idx.query(ds.queries[:BATCH], k=K))
 
     # -- 3. streaming ---------------------------------------------------------
-    stream_launches, stream_shapes, st = streaming_phase(idx, ops, dev)
+    stream_launches, stream_shapes, st, mindex = streaming_phase(idx, ops,
+                                                                 dev)
 
     # -- 4. kernels against their plain versions ------------------------------
     probe_shapes(ops, dev)
@@ -1352,6 +1649,13 @@ def main() -> int:
         ds, idx, arms["bucket"], ops, dev, smi)
     paths["alsh"] = (alsh_launches, alsh_shapes)
     compare(alsh_cases)
+    del alsh_cases
+
+    # -- 6. observability and the legacy shims --------------------------------
+    obs_launches, obs_shapes, obs_cases = obs_phase(
+        ds, idx, {**arms, "fused": fused}, budgets, mindex, ops, dev, smi)
+    paths["obs"] = (obs_launches, obs_shapes)
+    compare(obs_cases)
     for row in rows:
         row["launches_by_path"] = {p_: runs_[row["kernel"]]
                                    for p_, (runs_, _) in paths.items()}

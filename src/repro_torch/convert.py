@@ -7,6 +7,10 @@ int32 tensors with the same bits. The result is a
 :class:`repro_torch.core.index.ComposedIndex` whose queries run on the
 same projections, partition, codes and score table as the reference's.
 
+A legacy shim tuple (``SimpleLSHIndex``, ``RangeLSHIndex``,
+``SignALSHIndex``, ``L2ALSHIndex``, ``MultiTableIndex``) crosses as its
+fields: :func:`legacy_index_from_fields`.
+
 A streaming index crosses as the reference's ``streaming.index_tree``
 (nested dict, each leaf as a numpy array):
 :func:`mutable_index_from_tree` mounts it as a port
@@ -22,6 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import (l2_alsh, multi_table, range_lsh, sign_alsh,
+                              simple_lsh)
 from repro_torch.core.index import ComposedIndex, IndexSpec
 from repro_torch.core.planner import CalibrationTable
 
@@ -94,6 +100,41 @@ def index_from_fields(arrays: Mapping, spec: Mapping, hash_bits: int, *,
         table=tensor("table", np.float32),
         hash_bits=int(hash_bits),
         calib=None if calib is None else calibration_from_fields(calib))
+
+
+LEGACY = {"simple_lsh": simple_lsh.SimpleLSHIndex,
+          "range_lsh": range_lsh.RangeLSHIndex,
+          "sign_alsh": sign_alsh.SignALSHIndex,
+          "l2_alsh": l2_alsh.L2ALSHIndex,
+          "multi_table": multi_table.MultiTableIndex}
+
+
+def legacy_index_from_fields(kind: str, fields: Mapping, *, device=None):
+    """The port's legacy shim tuple of ``kind`` (a key of ``LEGACY``)
+    from the reference tuple's fields, on ``device``
+    (the card unless ``device="cpu"``). Every field of the tuple must be
+    given: arrays as numpy arrays, scalars as Python numbers. Packed
+    uint32 ``codes`` become int32 tensors with the same bits, ``hashes``
+    and ``range_id`` int32, every other array f32; scalars stay as they
+    are."""
+    if kind not in LEGACY:
+        raise ValueError(f"unknown legacy index {kind!r}; expected one of "
+                         f"{tuple(LEGACY)}")
+    cls = LEGACY[kind]
+    device = resolve_device(device)
+
+    def field(name, v):
+        if not isinstance(v, np.ndarray):
+            return v
+        if name in ("codes", "hashes"):
+            a = np.array(v).view(np.int32)
+        elif name == "range_id":
+            a = np.array(v, np.int32)
+        else:
+            a = np.array(v, np.float32)
+        return torch.as_tensor(a, device=device)
+
+    return cls(**{f: field(f, fields[f]) for f in cls._fields})
 
 
 def mutable_index_from_tree(tree: Mapping, *, device=None, **kw):

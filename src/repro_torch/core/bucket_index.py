@@ -119,15 +119,31 @@ def build_buckets(codes: torch.Tensor, range_id: torch.Tensor,
 
 
 def build_bucket_index(index) -> BucketIndex:
-    """The bucket store of a :class:`~repro_torch.core.index.ComposedIndex`
-    (its family score table defines the probe rank)."""
-    if index.codes.ndim == 3:
+    """The bucket store of any supported index: a spec-built
+    :class:`~repro_torch.core.index.ComposedIndex` (its family score table
+    defines the probe rank), a legacy ``RangeLSHIndex`` (``range_id``,
+    raw per-range ``upper``, ``hash_bits``, ``eps``: the eq.-12 rank
+    table) or ``SimpleLSHIndex`` (one range at the global max norm U;
+    eq. 12 with m = 1 is Hamming order)."""
+    if getattr(index, "codes", None) is not None and index.codes.ndim == 3:
         raise ValueError("multi-table single-probe has no bucket store; "
                          "query it via its own candidate_scores/query")
-    return build_buckets(index.codes, index.range_id, index.upper_eff,
-                         index.hash_bits, index.eps,
-                         rank=rank_from_scores(index.table),
-                         packed=index.family.packed)
+    if hasattr(index, "table"):
+        return build_buckets(index.codes, index.range_id, index.upper_eff,
+                             index.hash_bits, index.eps,
+                             rank=rank_from_scores(index.table),
+                             packed=index.family.packed)
+    if hasattr(index, "range_id"):
+        # raw per-range upper, as probe.item_scores: empty ranges are never
+        # referenced by a bucket, so their table entries are inert
+        return build_buckets(index.codes, index.range_id, index.upper,
+                             index.hash_bits, index.eps)
+    codes = index.codes
+    rid = torch.zeros((codes.shape[0],), dtype=torch.int32,
+                      device=codes.device)
+    upper = torch.as_tensor(index.U, dtype=torch.float32,
+                            device=codes.device).reshape(1)
+    return build_buckets(codes, rid, upper, index.code_len, DEFAULT_EPS)
 
 
 def bucket_sizes(bidx: BucketIndex) -> torch.Tensor:

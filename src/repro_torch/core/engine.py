@@ -13,6 +13,22 @@ they return identical candidate ids:
   * ``engine="fused"`` — the same directory walk, then one
     ``fused_query`` launch that expands the runs, scores, keeps the top
     k' and rescores them.
+
+An engine serves a spec-built :class:`~repro_torch.core.index.ComposedIndex`
+(encode and match through its family) or a legacy RANGE-LSH / SIMPLE-LSH
+tuple (``core/range_lsh.py``, ``core/simple_lsh.py``): their queries
+encode as ``P(q) = [q; 0]`` against the projection ``A`` and match the
+directory through ``ops.bucket_match``.
+
+With a tracker (``QueryEngine(tracker=)``, or the ambient one of
+:func:`repro_torch.obs.set_default_tracker`), every stage runs in a span
+named and costed as the reference's (``repro.engine.hash_encode``,
+``directory_match``, ``segmented_gather`` | ``fused_query`` | the dense
+``dense_match``/``dense_select``, ``re_rank``, ``top_k``, under
+``repro.engine.query``), synchronised at its end, and each batch records
+``repro.engine.queries``, ``probe_width`` and, under budgets,
+``probes_used.range{j}``. Without one, nothing is synchronised or
+computed for it.
 """
 
 from __future__ import annotations
@@ -24,9 +40,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import hashing
 from repro_torch.core.bucket_index import BucketIndex, build_bucket_index
 from repro_torch.core.topk import rerank
 from repro_torch.kernels import ops
+from repro_torch.obs import cost
+from repro_torch.obs.trace import costed_span, span_or_null
+from repro_torch.obs.tracker import resolve_tracker
 
 ENGINES = ("auto", "dense", "bucket", "fused")
 
@@ -43,17 +63,39 @@ def select_engine(num_buckets: int, num_items: int) -> str:
 def encode_queries(index, queries: torch.Tensor, *,
                    impl: str = "auto") -> torch.Tensor:
     """Hash queries under the index's family: its asymmetric query
-    transform, then its hash (packed sign codes or integer hashes)."""
-    return index.family.encode_queries(index.params, queries, impl=impl)
+    transform, then its hash (packed sign codes or integer hashes). A
+    legacy index has no family: its (d+1, L) projection ``A`` holds the
+    augmentation row last, and queries hash as ``P(q) = [q; 0]``."""
+    fam = getattr(index, "family", None)
+    if fam is not None:
+        return fam.encode_queries(index.params, queries, impl=impl)
+    q = hashing.normalize(queries.to(torch.float32))
+    zeros = torch.zeros((q.shape[0],), dtype=q.dtype, device=q.device)
+    return ops.hash_encode(q, index.A[:-1], zeros, index.A[-1], impl=impl)
+
+
+def _default_match(buckets: BucketIndex, impl: str):
+    """Packed-code match counter of legacy indexes:
+    ``l = L - hamming`` through ``ops.bucket_match``."""
+    return lambda q_codes, codes: ops.bucket_match(
+        q_codes, codes, buckets.hash_bits, impl=impl)
 
 
 def _directory_order(buckets: BucketIndex, q_codes: torch.Tensor,
-                     match_fn) -> torch.Tensor:
+                     match_fn, impl: str = "auto",
+                     tracker=None) -> torch.Tensor:
     """(Q, B) probe-ordered bucket indices: directory match -> per-bucket
-    rank -> stable sort (ties by CSR bucket position)."""
-    matches = match_fn(q_codes, buckets.bucket_code)            # (Q, B)
-    bucket_rank = buckets.rank[buckets.bucket_rid[None, :], matches]
-    return torch.argsort(bucket_rank, dim=-1, stable=True)
+    rank -> stable sort (ties by CSR bucket position). ``match_fn`` (the
+    family's match counter) None is the packed ``bucket_match`` of legacy
+    indexes."""
+    if match_fn is None:
+        match_fn = _default_match(buckets, impl)
+    with costed_span(tracker, "repro.engine.directory_match",
+                     cost.directory_match_cost, q_codes.shape[0],
+                     buckets.num_buckets, buckets.hash_bits) as sp:
+        matches = match_fn(q_codes, buckets.bucket_code)        # (Q, B)
+        bucket_rank = buckets.rank[buckets.bucket_rid[None, :], matches]
+        return sp.sync(torch.argsort(bucket_rank, dim=-1, stable=True))
 
 
 def _probe_runs(buckets: BucketIndex, order: torch.Tensor, num_probe: int
@@ -87,16 +129,19 @@ def _planned_runs(buckets: BucketIndex, order: torch.Tensor,
 
 def bucket_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
                       num_probe: int, *, impl: str = "auto",
-                      match_fn) -> torch.Tensor:
+                      match_fn=None, tracker=None) -> torch.Tensor:
     """(Q, num_probe) candidate item ids via bucket traversal."""
     num_probe = int(num_probe)
     if not 0 < num_probe <= buckets.num_items:
         raise ValueError(f"num_probe={num_probe} outside "
                          f"(0, N={buckets.num_items}]")
-    order = _directory_order(buckets, q_codes, match_fn)
-    cum, starts = _probe_runs(buckets, order, num_probe)
-    csr_pos = ops.bucket_gather(cum, starts, num_probe, impl=impl)
-    return buckets.item_ids[csr_pos]
+    order = _directory_order(buckets, q_codes, match_fn, impl, tracker)
+    with costed_span(tracker, "repro.engine.segmented_gather",
+                     cost.segmented_gather_cost, q_codes.shape[0],
+                     num_probe) as sp:
+        cum, starts = _probe_runs(buckets, order, num_probe)
+        csr_pos = ops.bucket_gather(cum, starts, num_probe, impl=impl)
+        return sp.sync(buckets.item_ids[csr_pos])
 
 
 def check_budgets(budgets: Sequence[int], range_counts: np.ndarray
@@ -149,19 +194,22 @@ def planned_take(rid_o: torch.Tensor, sizes_o: torch.Tensor,
 
 def planned_bucket_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
                               budgets: Sequence[int], *,
-                              impl: str = "auto", match_fn,
-                              range_counts: Optional[np.ndarray] = None
-                              ) -> torch.Tensor:
+                              impl: str = "auto", match_fn=None,
+                              range_counts: Optional[np.ndarray] = None,
+                              tracker=None) -> torch.Tensor:
     """(Q, sum_j min(b_j, n_j)) candidates: for each range j, its first
     ``min(b_j, n_j)`` items in canonical order, emitted in global
     canonical order."""
     if range_counts is None:
         range_counts = bucket_range_counts(buckets)
     budgets, total = check_budgets(budgets, range_counts)
-    order = _directory_order(buckets, q_codes, match_fn)
-    cum, starts = _planned_runs(buckets, order, budgets)
-    csr_pos = ops.bucket_gather(cum, starts, total, impl=impl)
-    return buckets.item_ids[csr_pos]
+    order = _directory_order(buckets, q_codes, match_fn, impl, tracker)
+    with costed_span(tracker, "repro.engine.segmented_gather",
+                     cost.segmented_gather_cost, q_codes.shape[0],
+                     total) as sp:
+        cum, starts = _planned_runs(buckets, order, budgets)
+        csr_pos = ops.bucket_gather(cum, starts, total, impl=impl)
+        return sp.sync(buckets.item_ids[csr_pos])
 
 
 def fused_bucket_query(buckets: BucketIndex, q_codes: torch.Tensor,
@@ -170,8 +218,9 @@ def fused_bucket_query(buckets: BucketIndex, q_codes: torch.Tensor,
                        budgets: Optional[Sequence[int]] = None,
                        payload: Optional[torch.Tensor] = None,
                        scale: Optional[torch.Tensor] = None,
-                       impl: str = "auto", match_fn,
-                       range_counts: Optional[np.ndarray] = None
+                       impl: str = "auto", match_fn=None,
+                       range_counts: Optional[np.ndarray] = None,
+                       tracker=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Directory walk, then one ``fused_query`` launch for run expansion,
     phase-1 scoring, survivor selection and f32 rescore. Returns (vals,
@@ -187,14 +236,20 @@ def fused_bucket_query(buckets: BucketIndex, q_codes: torch.Tensor,
         if not 0 < total <= buckets.num_items:
             raise ValueError(f"num_probe={total} outside "
                              f"(0, N={buckets.num_items}]")
-    order = _directory_order(buckets, q_codes, match_fn)
-    if budgets is not None:
-        cum, starts = _planned_runs(buckets, order, budgets)
-    else:
-        cum, starts = _probe_runs(buckets, order, total)
-    vals, pos = ops.fused_query(queries, cum, starts, items_csr, total, k,
-                                payload=payload, scale=scale, impl=impl)
-    return vals, buckets.item_ids[pos], total
+    order = _directory_order(buckets, q_codes, match_fn, impl, tracker)
+    with costed_span(tracker, "repro.engine.fused_query",
+                     cost.fused_query_cost, q_codes.shape[0], total,
+                     queries.shape[1], int(k),
+                     max(int(k), min(max(4 * int(k), 32), total))) as sp:
+        if budgets is not None:
+            cum, starts = _planned_runs(buckets, order, budgets)
+        else:
+            cum, starts = _probe_runs(buckets, order, total)
+        vals, pos = ops.fused_query(queries, cum, starts, items_csr, total,
+                                    k, payload=payload, scale=scale,
+                                    impl=impl)
+        ids = sp.sync(buckets.item_ids[pos])
+    return vals, ids, total
 
 
 def quantize_payload(items_csr: torch.Tensor
@@ -221,9 +276,9 @@ def planned_dense_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
                              db_codes: torch.Tensor,
                              range_id: torch.Tensor,
                              budgets: Sequence[int], *,
-                             impl: str = "auto", match_fn,
-                             range_counts: Optional[np.ndarray] = None
-                             ) -> torch.Tensor:
+                             impl: str = "auto", match_fn=None,
+                             range_counts: Optional[np.ndarray] = None,
+                             tracker=None) -> torch.Tensor:
     """Dense-scan realization of :func:`planned_bucket_candidates`'s
     contract; identical candidate ids."""
     if range_counts is None:
@@ -231,58 +286,85 @@ def planned_dense_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
                                    minlength=buckets.rank.shape[0]
                                    ).astype(np.int64)
     budgets, total = check_budgets(budgets, range_counts)
-    matches = match_fn(q_codes, db_codes)                       # (Q, N)
-    item_rank = buckets.rank[range_id[None, :], matches]
-    rank_csr = item_rank[:, buckets.item_ids]
-    order = torch.argsort(rank_csr, dim=-1, stable=True)        # (Q, N)
-    rid_o = range_id[buckets.item_ids][order]
-    wpos = range_cum_before(rid_o, torch.ones_like(rid_o), len(budgets))
-    caps = torch.tensor(budgets, dtype=torch.int32, device=rid_o.device)
-    # exactly ``total`` kept per query; row-major nonzero keeps them in
-    # canonical order (the reference's stable argsort of ~keep)
-    sel = _keep_canonical(wpos < caps[rid_o], total)
-    return buckets.item_ids[torch.gather(order, 1, sel)]
+    order = _dense_order(buckets, q_codes, db_codes, range_id, impl,
+                         match_fn, tracker)
+    with costed_span(tracker, "repro.engine.dense_select",
+                     cost.dense_select_cost, q_codes.shape[0],
+                     buckets.num_items) as sp:
+        rid_o = range_id[buckets.item_ids][order]
+        wpos = range_cum_before(rid_o, torch.ones_like(rid_o),
+                                len(budgets))
+        caps = torch.tensor(budgets, dtype=torch.int32,
+                            device=rid_o.device)
+        # exactly ``total`` kept per query; row-major nonzero keeps them in
+        # canonical order (the reference's stable argsort of ~keep)
+        sel = _keep_canonical(wpos < caps[rid_o], total)
+        return sp.sync(buckets.item_ids[torch.gather(order, 1, sel)])
+
+
+def _dense_order(buckets: BucketIndex, q_codes: torch.Tensor,
+                 db_codes: torch.Tensor, range_id: torch.Tensor, impl: str,
+                 match_fn, tracker) -> torch.Tensor:
+    """(Q, N) CSR positions in canonical order: match every item, rank,
+    stable sort with the columns in CSR order (ties on CSR position)."""
+    if match_fn is None:
+        match_fn = _default_match(buckets, impl)
+    with costed_span(tracker, "repro.engine.dense_match",
+                     cost.dense_match_cost, q_codes.shape[0],
+                     buckets.num_items, buckets.hash_bits) as sp:
+        matches = match_fn(q_codes, db_codes)                   # (Q, N)
+        item_rank = buckets.rank[range_id[None, :], matches]
+        rank_csr = item_rank[:, buckets.item_ids]
+        return sp.sync(torch.argsort(rank_csr, dim=-1, stable=True))
 
 
 def dense_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
                      db_codes: torch.Tensor, range_id: torch.Tensor,
                      num_probe: int, *, impl: str = "auto",
-                     match_fn) -> torch.Tensor:
+                     match_fn=None, tracker=None) -> torch.Tensor:
     """(Q, num_probe) candidate ids via the dense scan, in the canonical
     order of :func:`bucket_candidates`."""
-    matches = match_fn(q_codes, db_codes)
-    item_rank = buckets.rank[range_id[None, :], matches]
-    rank_csr = item_rank[:, buckets.item_ids]
-    order = torch.argsort(rank_csr, dim=-1, stable=True)
-    return buckets.item_ids[order[:, :int(num_probe)]]
+    order = _dense_order(buckets, q_codes, db_codes, range_id, impl,
+                         match_fn, tracker)
+    with costed_span(tracker, "repro.engine.dense_select",
+                     cost.dense_select_cost, q_codes.shape[0],
+                     buckets.num_items) as sp:
+        return sp.sync(buckets.item_ids[order[:, :int(num_probe)]])
 
 
 # bounded LRU of engines for the convenience surface (ComposedIndex.query
 # / candidates): repeat calls over one index reuse its host-built bucket
-# store. An entry holds a strong reference to its index, so an id() key
-# cannot be a stale reuse.
+# store. An entry holds strong references to its index and tracker, so an
+# id() key cannot be a stale reuse; the ``repro.engine.memo_size`` gauge
+# shows the occupancy.
 _ENGINE_MEMO_CAP = 8
 _engine_memo: OrderedDict = OrderedDict()
 
 
 def engine_for(index, *, engine: str, buckets=None,
-               impl: str = "auto") -> "QueryEngine":
+               impl: str = "auto", tracker=None) -> "QueryEngine":
     """A :class:`QueryEngine` over ``index`` on the index's device,
-    memoized when no prebuilt ``buckets`` are given."""
+    memoized when no prebuilt ``buckets`` are given. The ambient tracker
+    is resolved here and keys the memo, so installing one redirects even
+    an already-memoized convenience path."""
+    tracker = resolve_tracker(tracker)
     device = index.items.device
     if buckets is not None:
         return QueryEngine(index, engine=engine, buckets=buckets, impl=impl,
-                           device=device)
-    key = (id(index), engine, impl)
+                           tracker=tracker, device=device)
+    key = (id(index), engine, impl, id(tracker))
     ent = _engine_memo.get(key)
     if ent is None:
-        eng = QueryEngine(index, engine=engine, impl=impl, device=device)
-        _engine_memo[key] = (index, eng)
+        eng = QueryEngine(index, engine=engine, impl=impl, tracker=tracker,
+                          device=device)
+        _engine_memo[key] = (index, tracker, eng)
         while len(_engine_memo) > _ENGINE_MEMO_CAP:
             _engine_memo.popitem(last=False)
     else:
         _engine_memo.move_to_end(key)
-        eng = ent[1]
+        eng = ent[-1]
+    if tracker is not None:
+        tracker.gauge("repro.engine.memo_size", len(_engine_memo))
     return eng
 
 
@@ -290,11 +372,15 @@ class QueryEngine:
     """Batched candidate generation + exact re-rank over one index.
 
     Args:
-      index:     a :class:`~repro_torch.core.index.ComposedIndex`.
+      index:     a :class:`~repro_torch.core.index.ComposedIndex`, or a
+                 legacy ``RangeLSHIndex`` / ``SimpleLSHIndex``.
       engine:    "dense" | "bucket" | "fused" | "auto".
       buckets:   optional prebuilt BucketIndex (else built here, a host
                  O(N log N) step: reuse the engine across batches).
       impl:      kernel dispatch ("auto" | "cuda" | "ref").
+      tracker:   optional :class:`repro_torch.obs.Tracker`; None falls back
+                 to the ambient default (resolved once, here). It adds
+                 stage spans and query records; results stay identical.
       quantized: fused engine only — phase 1 scores the int8 payload.
       device:    the device the engine runs on; the card unless
                  ``device="cpu"``. The index must live there.
@@ -302,7 +388,7 @@ class QueryEngine:
 
     def __init__(self, index, *, engine: str = "auto",
                  buckets: Optional[BucketIndex] = None, impl: str = "auto",
-                 quantized: bool = False, device=None):
+                 tracker=None, quantized: bool = False, device=None):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine: {engine!r}")
         if quantized and engine != "fused":
@@ -321,6 +407,7 @@ class QueryEngine:
         self.buckets = buckets
         self.impl = impl
         self.quantized = quantized
+        self.tracker = resolve_tracker(tracker)
         self._range_counts_cache = None
         self._fused_cache = None
 
@@ -338,18 +425,38 @@ class QueryEngine:
         return self._fused_cache
 
     @property
+    def _range_id(self) -> torch.Tensor:
+        """(N,) int32 range of each item (all zero for SIMPLE-LSH)."""
+        if hasattr(self.index, "range_id"):
+            return self.index.range_id
+        return torch.zeros((self.index.codes.shape[0],), dtype=torch.int32,
+                           device=self.index.codes.device)
+
+    @property
     def _range_counts(self) -> np.ndarray:
         if self._range_counts_cache is None:
             self._range_counts_cache = bucket_range_counts(self.buckets)
         return self._range_counts_cache
 
-    def _match_fn(self, q_codes, codes):
+    @property
+    def _match_fn(self):
+        """The family's match counter; None (the packed ``bucket_match``)
+        for a legacy index."""
         idx = self.index
-        return idx.family.match_counts(idx.params, q_codes, codes,
-                                       idx.hash_bits, impl=self.impl)
+        fam = getattr(idx, "family", None)
+        if fam is None:
+            return None
+        return lambda q_codes, codes: fam.match_counts(
+            idx.params, q_codes, codes, idx.hash_bits, impl=self.impl)
 
     def _encode(self, queries: torch.Tensor) -> torch.Tensor:
-        return encode_queries(self.index, queries, impl=self.impl)
+        with costed_span(self.tracker, "repro.engine.hash_encode",
+                         cost.hash_encode_cost, queries.shape[0],
+                         queries.shape[1],
+                         getattr(self.index, "code_len",
+                                 self.buckets.hash_bits)) as sp:
+            return sp.sync(encode_queries(self.index, queries,
+                                          impl=self.impl))
 
     def candidates(self, queries: torch.Tensor,
                    num_probe: Optional[int] = None, *,
@@ -359,27 +466,29 @@ class QueryEngine:
         ``num_probe``, or the per-range prefixes of ``budgets``."""
         if (num_probe is None) == (budgets is None):
             raise ValueError("pass exactly one of num_probe/budgets")
+        tr = self.tracker
         q_codes = self._encode(queries)
         if budgets is not None:
             if self.engine in ("bucket", "fused"):
                 return planned_bucket_candidates(
                     self.buckets, q_codes, budgets, impl=self.impl,
                     match_fn=self._match_fn,
-                    range_counts=self._range_counts)
+                    range_counts=self._range_counts, tracker=tr)
             return planned_dense_candidates(
-                self.buckets, q_codes, self.index.codes,
-                self.index.range_id, budgets, impl=self.impl,
-                match_fn=self._match_fn, range_counts=self._range_counts)
+                self.buckets, q_codes, self.index.codes, self._range_id,
+                budgets, impl=self.impl, match_fn=self._match_fn,
+                range_counts=self._range_counts, tracker=tr)
         num_probe = int(num_probe)
         if not 0 < num_probe <= self.buckets.num_items:
             raise ValueError(f"num_probe={num_probe} outside "
                              f"(0, N={self.buckets.num_items}]")
         if self.engine in ("bucket", "fused"):
             return bucket_candidates(self.buckets, q_codes, num_probe,
-                                     impl=self.impl, match_fn=self._match_fn)
+                                     impl=self.impl,
+                                     match_fn=self._match_fn, tracker=tr)
         return dense_candidates(self.buckets, q_codes, self.index.codes,
-                                self.index.range_id, num_probe,
-                                impl=self.impl, match_fn=self._match_fn)
+                                self._range_id, num_probe, impl=self.impl,
+                                match_fn=self._match_fn, tracker=tr)
 
     def query(self, queries: torch.Tensor, k: int,
               num_probe: Optional[int] = None, *,
@@ -394,20 +503,33 @@ class QueryEngine:
                 raise ValueError(
                     "pass one of num_probe/budgets/recall_target")
             from repro_torch.core.planner import resolve_budgets
-            budgets = resolve_budgets(self.index.calib, recall_target,
-                                      k=k).budgets
-        if self.engine == "fused":
-            if (num_probe is None) == (budgets is None):
-                raise ValueError("pass exactly one of num_probe/budgets")
-            items_csr, payload, scale = self._fused_arrays
-            vals, ids, _ = fused_bucket_query(
-                self.buckets, self._encode(queries), queries, items_csr,
-                int(k), num_probe=num_probe, budgets=budgets,
-                payload=payload, scale=scale, impl=self.impl,
-                match_fn=self._match_fn, range_counts=self._range_counts)
-            return vals, ids
-        cand = self.candidates(queries, num_probe, budgets=budgets)
-        if not 0 < int(k) <= cand.shape[1]:
-            raise ValueError(f"k={k} outside (0, probed width "
-                             f"{cand.shape[1]}]")
-        return rerank(queries, self.index.items, cand, int(k))
+            budgets = resolve_budgets(getattr(self.index, "calib", None),
+                                      recall_target, k=k).budgets
+        tr = self.tracker
+        with span_or_null(tr, "repro.engine.query"):
+            if self.engine == "fused":
+                if (num_probe is None) == (budgets is None):
+                    raise ValueError("pass exactly one of "
+                                     "num_probe/budgets")
+                items_csr, payload, scale = self._fused_arrays
+                vals, ids, width = fused_bucket_query(
+                    self.buckets, self._encode(queries), queries,
+                    items_csr, int(k), num_probe=num_probe,
+                    budgets=budgets, payload=payload, scale=scale,
+                    impl=self.impl, match_fn=self._match_fn,
+                    range_counts=self._range_counts, tracker=tr)
+            else:
+                cand = self.candidates(queries, num_probe, budgets=budgets)
+                if not 0 < int(k) <= cand.shape[1]:
+                    raise ValueError(f"k={k} outside (0, probed width "
+                                     f"{cand.shape[1]}]")
+                vals, ids = rerank(queries, self.index.items, cand, int(k),
+                                   tracker=tr)
+                width = cand.shape[1]
+        if tr is not None:
+            tr.count("repro.engine.queries", queries.shape[0])
+            tr.observe("repro.engine.probe_width", width)
+            if budgets is not None:
+                for j, b in enumerate(budgets):
+                    tr.observe(f"repro.engine.probes_used.range{j}", b)
+        return vals, ids

@@ -64,6 +64,10 @@ class IndexSpec:
       alsh_m/alsh_U/alsh_r: ALSH transform order / scaling /
                  quantization width overrides (None = the family's
                  recommended values).
+      tracker:   optional :class:`repro_torch.obs.Tracker` the built
+                 index's query surfaces report to. Left out of equality,
+                 hash and repr: attaching observability never changes
+                 what the spec is or what queries return.
     """
 
     family: str = "simple"
@@ -79,6 +83,8 @@ class IndexSpec:
     alsh_m: Optional[int] = None
     alsh_U: Optional[float] = None
     alsh_r: Optional[float] = None
+    tracker: Optional[object] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def resolve_family(self) -> HashFamily:
         return get_family(self.family, alsh_m=self.alsh_m,
@@ -258,7 +264,7 @@ class ComposedIndex(NamedTuple):
                 return self.probe_order(queries)[:, :num_probe]
         from repro_torch.core.engine import engine_for
         eng = engine_for(self, engine=engine, buckets=buckets,
-                         impl=self.spec.impl)
+                         impl=self.spec.impl, tracker=self.spec.tracker)
         return eng.candidates(queries, num_probe, budgets=budgets)
 
     def query(self, queries: torch.Tensor, k: int,
@@ -288,14 +294,16 @@ class ComposedIndex(NamedTuple):
         if engine == "fused":
             from repro_torch.core.engine import engine_for
             eng = engine_for(self, engine=engine, buckets=buckets,
-                             impl=self.spec.impl)
+                             impl=self.spec.impl, tracker=self.spec.tracker)
             return eng.query(queries, int(k), num_probe, budgets=budgets)
         cand = self.candidates(queries, num_probe, engine=engine,
                                buckets=buckets, budgets=budgets)
         if not 0 < int(k) <= cand.shape[1]:
             raise ValueError(f"k={k} outside (0, probed width "
                              f"{cand.shape[1]}]")
-        return rerank(queries, self.items, cand, int(k))
+        from repro_torch.obs.tracker import resolve_tracker
+        return rerank(queries, self.items, cand, int(k),
+                      tracker=resolve_tracker(self.spec.tracker))
 
 
 class ComposedMultiTable(NamedTuple):

@@ -344,7 +344,7 @@ def adaptive_query(engine, queries, k: int, *,
                    recall_target: Optional[float] = None,
                    budgets: Optional[Sequence[int]] = None,
                    num_probe: Optional[int] = None,
-                   chunk: int = ADAPTIVE_CHUNK
+                   chunk: int = ADAPTIVE_CHUNK, tracker=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Planned probing with provable per-query early termination.
 
@@ -362,6 +362,11 @@ def adaptive_query(engine, queries, k: int, *,
     when none is; a step after the last query stopped changes nothing (its
     scores are -inf, its count 0), so the results do not depend on how
     often it reads.
+
+    ``tracker`` (default: the engine's) records each query's probes_used
+    and the share of the planned width it saved, once, after the loop:
+    the one extra read of ``probes_used`` to the host is made only when
+    a tracker is set.
 
     Returns ``(vals, ids, probes_used)``: (Q, k) f32, (Q, k) int32 (-1
     past the finite values) and (Q,) int32."""
@@ -418,4 +423,13 @@ def adaptive_query(engine, queries, k: int, *,
             break
         active &= vals[:, k - 1] < bound[:, c + chunk]
     ids = torch.where(torch.isfinite(vals), ids, -1)
+    tr = tracker if tracker is not None else getattr(engine, "tracker",
+                                                     None)
+    if tr is not None:
+        for u in used.cpu().numpy():
+            tr.observe("repro.planner.probes_used", float(u))
+            tr.observe("repro.planner.adaptive_savings",
+                       float(p - u) / float(p))
+        tr.count("repro.planner.adaptive_queries", q)
+        tr.gauge("repro.planner.planned_width", p)
     return vals, ids.to(torch.int32), used

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ref import full_f32, stable_topk
+from repro_torch.obs import cost
+from repro_torch.obs.trace import costed_span
 
 EXACT_CHUNK = 64          # queries per (chunk, N) score block in exact_mips
 # bytes of gathered (P, d) candidate rows a re-rank holds at once (here and
@@ -61,42 +63,45 @@ def rerank_blocks(q: int, p: int, d: int, k: int) -> Tuple[int, int]:
 
 
 def rerank(queries: torch.Tensor, items: torch.Tensor,
-           cand_ids: torch.Tensor, k: int
+           cand_ids: torch.Tensor, k: int, *, tracker=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact re-rank of per-query candidates (Q, P) -> (vals, item ids)
     (Q, k). A repeated id is masked to its first occurrence before the
     top-k, so one item never claims two result slots.
 
-    The candidate rows are gathered a block at a time
-    (:func:`rerank_blocks`), so at most ``RERANK_BYTES`` of them are held.
-    A query whose own rows exceed it is walked in candidate blocks under a
-    running top-k: the kept entries come first in the concatenation, and
-    they all sit at earlier positions, so equal scores still go to the
-    first position, as in one :func:`stable_topk` over the whole row."""
+    The (Q, P) scores are formed a block at a time
+    (:func:`rerank_blocks`), so at most ``RERANK_BYTES`` of gathered
+    candidate rows are held; then one :func:`stable_topk` a block of
+    queries ranks them, equal scores to the first position. ``tracker``
+    adds the ``re_rank`` (scores) and ``top_k`` stage spans, each over
+    the whole loop, synchronised at their ends."""
     q, p = cand_ids.shape
-    qb, pb = rerank_blocks(q, p, items.shape[1], int(k))
+    d = items.shape[1]
+    qb, pb = rerank_blocks(q, p, d, int(k))
+    with costed_span(tracker, "repro.engine.re_rank", cost.re_rank_cost,
+                     q, p, d) as sp:
+        scores = torch.empty((q, p), dtype=torch.float32,
+                             device=cand_ids.device)
+        for s in range(0, q, qb):
+            for c in range(0, p, pb):
+                block = cand_ids[s:s + qb, c:c + pb].long()
+                with full_f32():
+                    scores[s:s + qb, c:c + pb] = torch.einsum(
+                        "qd,qpd->qp", queries[s:s + qb], items[block])
+        sp.sync(scores)
     low = torch.finfo(torch.float32).min
     vals, ids = [], []
-    for s in range(0, q, qb):
-        cand = cand_ids[s:s + qb]
-        qs = queries[s:s + qb]
-        dup = _first_occurrence_dups(cand)
-        best_v = best_p = None
-        for c in range(0, p, pb):
-            block = cand[:, c:c + pb]
-            with full_f32():
-                scores = torch.einsum("qd,qpd->qp", qs, items[block.long()])
-            scores = torch.where(dup[:, c:c + pb], low, scores)
-            cols = torch.arange(c, c + block.shape[1],
-                                device=cand.device).expand_as(block)
-            if best_v is not None:
-                scores = torch.cat([best_v, scores], dim=1)
-                cols = torch.cat([best_p, cols], dim=1)
-            best_v, pos = stable_topk(scores, k)
-            best_p = torch.gather(cols, 1, pos)
-        vals.append(best_v)
-        ids.append(torch.gather(cand, 1, best_p))
-    return torch.cat(vals), torch.cat(ids)
+    with costed_span(tracker, "repro.engine.top_k", cost.top_k_cost,
+                     q, p, k) as sp:
+        for s in range(0, q, qb):
+            cand = cand_ids[s:s + qb]
+            masked = torch.where(_first_occurrence_dups(cand), low,
+                                 scores[s:s + qb])
+            v, pos = stable_topk(masked, k)
+            vals.append(v)
+            ids.append(torch.gather(cand, 1, pos))
+        vals, ids = sp.sync((torch.cat(vals), torch.cat(ids)))
+    return vals, ids
 
 
 def recall_at(retrieved: torch.Tensor, truth: torch.Tensor) -> float:

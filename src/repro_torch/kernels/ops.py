@@ -18,6 +18,15 @@ the launch passes (``last_shape[kernel]`` keeps the latest), and raises
 ``RuntimeError`` when the launch is refused; nothing falls back to the
 plain version on a CUDA tensor. Outputs are allocated here and the
 kernels run on the current stream.
+
+With a tracker installed (:func:`set_dispatch_tracker`), every wrapper
+call counts ``repro.kernels.dispatch.<op>.<impl>`` (``impl`` resolved to
+"cuda" or "ref") and adds its analytic cost to
+``repro.kernels.cost.<op>.{flops,hbm_bytes}`` (:mod:`repro_torch.obs.cost`),
+as the reference's ops do. The reference counts at trace time, so a
+jitted caller counts once per compiled shape; here every call counts, and
+on the card the ``.cuda`` count of an op equals its launches
+(``fused_query``'s: ``fused_query`` plus ``fused_query_int8``).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.obs import cost as _cost
 
 IMPLS = ("auto", "cuda", "ref")
 OPS = ("hash_encode", "hamming_scan", "bucket_gather", "fused_query",
@@ -75,6 +85,29 @@ def reset_launch_counts() -> None:
     last_shape.clear()
 
 
+# optional dispatch observability: with a tracker installed, every wrapper
+# call counts ``repro.kernels.dispatch.<op>.<impl>`` and its cost
+_dispatch_tracker = None
+
+
+def set_dispatch_tracker(tracker) -> None:
+    """Install (or clear, with None) the module-level dispatch tracker."""
+    global _dispatch_tracker
+    _dispatch_tracker = tracker
+
+
+def _charge(op: str, cost_fn, *args) -> None:
+    """Accumulate the analytic device cost of one op call
+    (``repro.kernels.cost.<op>.{flops,hbm_bytes}``); nothing is computed
+    without a tracker."""
+    tr = _dispatch_tracker
+    if tr is None:
+        return
+    c = cost_fn(*args)
+    tr.count(f"repro.kernels.cost.{op}.flops", c["flops"])
+    tr.count(f"repro.kernels.cost.{op}.hbm_bytes", c["hbm_bytes"])
+
+
 def _resolve(impl: str, op: str, *tensors: torch.Tensor) -> str:
     if impl not in IMPLS:
         raise ValueError(f"{op}: unknown impl {impl!r}; expected one of "
@@ -89,6 +122,8 @@ def _resolve(impl: str, op: str, *tensors: torch.Tensor) -> str:
                              f"{[str(t.device) for t in tensors]}")
         if len({t.device for t in tensors}) != 1:
             raise ValueError(f"{op}: inputs span several devices")
+    if _dispatch_tracker is not None:
+        _dispatch_tracker.count(f"repro.kernels.dispatch.{op}.{impl}")
     return impl
 
 
@@ -156,6 +191,7 @@ def hash_encode(x: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"hash_encode: tail {tuple(tail.shape)} and a_tail "
                          f"{tuple(a_tail.shape)} must be ({N},) and ({L},)")
     impl = _resolve(impl, "hash_encode", x, A, tail, a_tail)
+    _charge("hash_encode", _cost.hash_encode_cost, N, d, L)
     if impl == "ref":
         return _ref.hash_encode_ref(x, A, tail, a_tail)
     plan = hash_encode_plan(
@@ -252,6 +288,8 @@ def hamming_scan(q_codes: torch.Tensor, db_codes: torch.Tensor, *,
     """All-pairs Hamming distances (Q, W) x (N, W) -> (Q, N) int32."""
     _check_packed("hamming_scan", q_codes, db_codes, "N", "item codes")
     impl = _resolve(impl, "hamming_scan", q_codes, db_codes)
+    _charge("hamming_scan", _cost.packed_scan_cost, q_codes.shape[0],
+            db_codes.shape[0], 32 * q_codes.shape[1])
     if impl == "ref":
         return _ref.hamming_ref(q_codes, db_codes)
     return _packed_scan("hamming_scan", "hamming", q_codes, db_codes)
@@ -264,6 +302,8 @@ def bucket_match(q_codes: torch.Tensor, bucket_codes: torch.Tensor,
     _check_packed("bucket_match", q_codes, bucket_codes, "B",
                   "bucket codes")
     impl = _resolve(impl, "bucket_match", q_codes, bucket_codes)
+    _charge("bucket_match", _cost.packed_scan_cost, q_codes.shape[0],
+            bucket_codes.shape[0], hash_bits)
     if impl == "ref":
         return _ref.bucket_match_ref(q_codes, bucket_codes, hash_bits)
     return _packed_scan("bucket_match", "bucket_match", q_codes,
@@ -281,6 +321,8 @@ def delta_scan(q_codes: torch.Tensor, delta_codes: torch.Tensor,
         raise ValueError(f"delta_scan: live {tuple(live.shape)} must be "
                          f"(C={delta_codes.shape[0]},)")
     impl = _resolve(impl, "delta_scan", q_codes, delta_codes, live)
+    _charge("delta_scan", _cost.packed_scan_cost, q_codes.shape[0],
+            delta_codes.shape[0], hash_bits)
     if impl == "ref":
         return _ref.delta_scan_ref(q_codes, delta_codes, live, hash_bits)
     # the kernel reads one byte a slot, nonzero = live: a bool or uint8
@@ -308,6 +350,8 @@ def mips_topk(queries: torch.Tensor, items: torch.Tensor, k: int, *,
         raise ValueError(f"mips_topk: queries have d={queries.shape[1]}, "
                          f"items d={items.shape[1]}")
     impl = _resolve(impl, "mips_topk", queries, items)
+    _charge("mips_topk", _cost.mips_topk_cost, queries.shape[0],
+            items.shape[0], queries.shape[1], k)
     if impl == "ref":
         return _ref.mips_topk_ref(queries, items, k)
     queries = _require("mips_topk", queries, "queries", torch.float32)
@@ -368,6 +412,8 @@ def bucket_gather(cum: torch.Tensor, starts: torch.Tensor, num_probe: int,
         raise ValueError(f"bucket_gather: starts {tuple(starts.shape)} "
                          f"must be (Q, S) for cum {tuple(cum.shape)}")
     impl = _resolve(impl, "bucket_gather", cum, starts)
+    _charge("bucket_gather", _cost.segmented_gather_cost, cum.shape[0],
+            num_probe)
     if impl == "ref":
         return _ref.bucket_gather_ref(cum, starts, num_probe)
     cum = _require("bucket_gather", cum, "cum", torch.int32)
@@ -422,6 +468,7 @@ def fused_query(queries: torch.Tensor, cum: torch.Tensor,
                          "(the per-item dequant scales)")
     extra = () if payload is None else (payload, scale)
     impl = _resolve(impl, "fused_query", queries, cum, starts, items, *extra)
+    _charge("fused_query", _cost.fused_query_cost, Q, total, d, k, kprime)
     if impl == "ref":
         return _ref.fused_query_ref(queries, cum, starts, items, total, k,
                                     kprime=kprime, payload=payload,

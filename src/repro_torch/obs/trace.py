@@ -1,0 +1,183 @@
+"""Span-based tracing of the query hot path (port of
+``repro/obs/trace.py``).
+
+A span times one stage — ``hash_encode``, ``directory_match``,
+``segmented_gather``, ``re_rank``, ``top_k`` — with an explicit
+device-sync boundary: CUDA launches are asynchronous, so a host clock read
+after an un-synced call measures the enqueue, not the stage. Registering
+a sync value (``span(name, sync=x)`` or ``sp.sync(x)`` in the body) makes
+the span wait for it before reading the clock: for every CUDA device that
+holds a tensor of the value (a tensor, or a tuple, list or dict of them),
+the span synchronises that device's current stream, the stream the
+stage's work was enqueued on. CPU tensors need no sync. Instrumentation
+never touches values, so enabling tracing cannot change query results.
+
+Spans nest: the tracer keeps a stack and emits each span with its full
+``path`` (``/``-joined ancestry), so the per-stage breakdown of a
+``repro.engine.query`` parent is reconstructable from the record stream.
+Durations also land in the tracker histogram named by the span (p50 /
+p90 / p99 stage timings).
+
+Span records carry ``t0`` (start, seconds since tracker start) beside
+``dur_s``, so :mod:`repro_torch.obs.export` can rebuild begin/end pairs,
+and an optional ``attrs`` dict — ``sp.set_attrs(flops=...,
+hbm_bytes=...)``, the analytic costs of :mod:`repro_torch.obs.cost`. A
+span whose body OR sync raises emits nothing: a failed device
+computation has no meaningful duration.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+
+def _cuda_devices(value: Any, out: set) -> set:
+    """The CUDA devices holding a tensor of ``value`` (a tensor, or a
+    tuple, list or dict of them, nested)."""
+    if isinstance(value, torch.Tensor):
+        if value.is_cuda:
+            out.add(value.device)
+    elif isinstance(value, dict):
+        for v in value.values():
+            _cuda_devices(v, out)
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            _cuda_devices(v, out)
+    return out
+
+
+def block_until_ready(value: Any) -> Any:
+    """Wait until the device work that produces ``value`` has finished:
+    synchronise the current stream of each CUDA device holding one of its
+    tensors. Returns ``value``."""
+    for device in _cuda_devices(value, set()):
+        torch.cuda.current_stream(device).synchronize()
+    return value
+
+
+class Span:
+    """One timed stage; use via ``with tracker.span(name) as sp:``."""
+
+    __slots__ = ("name", "tracer", "_sync", "t_start", "duration", "path",
+                 "depth", "attrs")
+
+    def __init__(self, tracer: "Tracer", name: str, sync: Any = None,
+                 attrs: Optional[Dict[str, Any]] = None):
+        self.tracer = tracer
+        self.name = name
+        self._sync = sync
+        self.t_start: Optional[float] = None
+        self.duration: Optional[float] = None
+        self.path: Optional[str] = None
+        self.depth: Optional[int] = None
+        self.attrs: Dict[str, Any] = dict(attrs) if attrs else {}
+
+    def sync(self, value: Any) -> Any:
+        """Register the value whose device completion ends this span;
+        returns it unchanged so it can wrap the producing expression."""
+        self._sync = value
+        return value
+
+    def set_attrs(self, **attrs: Any) -> None:
+        """Attach structured attributes (predicted flops/bytes, shapes,
+        ...) to this span's record; merged over earlier values."""
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> "Span":
+        self.tracer._push(self)
+        self.t_start = self.tracer.tracker.clock()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        failed = exc_type is not None
+        try:
+            if not failed and self._sync is not None:
+                block_until_ready(self._sync)
+        except BaseException:
+            # a sync that raises is a failed span: the duration would
+            # measure time-to-error, not the stage
+            failed = True
+            raise
+        finally:
+            self.duration = self.tracer.tracker.clock() - self.t_start
+            self.tracer._pop(self, failed=failed)
+
+
+class Tracer:
+    """Span factory + nesting stack for one tracker."""
+
+    def __init__(self, tracker):
+        self.tracker = tracker
+        self._stack: List[Span] = []
+
+    def span(self, name: str, *, sync: Any = None,
+             attrs: Optional[Dict[str, Any]] = None) -> Span:
+        return Span(self, name, sync=sync, attrs=attrs)
+
+    def _push(self, span: Span) -> None:
+        span.depth = len(self._stack)
+        span.path = "/".join([s.name for s in self._stack] + [span.name])
+        self._stack.append(span)
+
+    def _pop(self, span: Span, *, failed: bool) -> None:
+        # unwind even on exceptions; tolerate out-of-order exits from
+        # misuse rather than corrupting the stack
+        while self._stack and self._stack[-1] is not span:
+            self._stack.pop()
+        if self._stack:
+            self._stack.pop()
+        if failed:
+            return
+        tr = self.tracker
+        h = tr.hists.get(span.name)
+        if h is None:
+            from repro_torch.obs.tracker import LogHistogram
+            h = tr.hists[span.name] = LogHistogram()
+        h.record(span.duration)
+        rec = {"type": "span", "name": span.name, "path": span.path,
+               "depth": span.depth, "t0": span.t_start - tr._t0,
+               "dur_s": span.duration}
+        if span.attrs:
+            rec["attrs"] = dict(span.attrs)
+        tr._emit(rec)
+
+
+class _NullSpan:
+    """No-tracker fast path: zero bookkeeping, ``sync`` is identity."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+    @staticmethod
+    def sync(value):
+        return value
+
+    @staticmethod
+    def set_attrs(**attrs):
+        return None
+
+
+_NULL_SPAN = _NullSpan()
+
+
+def span_or_null(tracker, name: str, *, sync: Any = None):
+    """``tracker.span(name)`` when a tracker is attached, else a shared
+    no-op context — the instrumentation idiom for hot paths where
+    ``tracker`` is usually None."""
+    if tracker is None:
+        return _NULL_SPAN
+    return tracker.span(name, sync=sync)
+
+
+def costed_span(tracker, name: str, cost_fn, *args):
+    """:func:`span_or_null` whose ``attrs`` are ``cost_fn(*args)`` (an
+    analytic stage cost of :mod:`repro_torch.obs.cost`), evaluated only
+    when a tracker is attached, so an untracked stage computes nothing."""
+    if tracker is None:
+        return _NULL_SPAN
+    return tracker.span(name, attrs=cost_fn(*args))

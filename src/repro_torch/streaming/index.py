@@ -21,6 +21,13 @@ their guarantees:
     affected ranges: a range's items are contiguous in CSR (rid-major
     sort), so re-encode + re-sort is spliced into the store in place.
     ``repartition_policy="full"`` rebuilds everything instead.
+
+With a tracker (``MutableIndex(tracker=)``, ``set_tracker`` or the
+ambient one), writes count ``repro.streaming.inserts``/``deletes``, each
+query batch runs in a ``repro.streaming.query`` span and records
+``queries`` and ``probe_width``, every structural event is also a typed
+``repro.streaming.<kind>`` event, and ``stats()`` reports the drift
+monitor's gauges.
 """
 
 from __future__ import annotations
@@ -31,11 +38,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import hashing
+from repro_torch.core import hashing, range_lsh
 from repro_torch.core.bucket_index import BucketIndex, rank_from_scores
 from repro_torch.core.engine import select_engine
 from repro_torch.core.family import HashFamily, SimpleLSHFamily
 from repro_torch.core.probe import DEFAULT_EPS
+from repro_torch.obs.trace import span_or_null
+from repro_torch.obs.tracker import resolve_tracker
 from repro_torch.streaming.delta import DeltaBuffer, directory_keys
 from repro_torch.streaming.drift import (DEFAULT_MIN_SKEW_COUNT,
                                          DEFAULT_SKEW_RATIO, DriftMonitor)
@@ -141,9 +150,8 @@ class MutableIndex:
                  device=None):
         if repartition_policy not in ("localized", "full"):
             raise ValueError(f"unknown policy {repartition_policy!r}")
-        if tracker is not None:
-            raise ValueError("trackers are not ported to repro_torch yet "
-                             "(repro.obs); pass tracker=None")
+        # observability first: structural paths below may emit events
+        self.tracker = resolve_tracker(tracker)
         self.family = SimpleLSHFamily() if family is None else family
         if not self.family.packed:
             raise ValueError(
@@ -201,6 +209,22 @@ class MutableIndex:
     # -- construction --------------------------------------------------------
 
     @classmethod
+    def from_range_lsh(cls, index: "range_lsh.RangeLSHIndex", *,
+                       scheme: str = "percentile", **kw) -> "MutableIndex":
+        """Mount a legacy :class:`~repro_torch.core.range_lsh.RangeLSHIndex`
+        on the index's device."""
+        norms = _host(index.norms)
+        return cls(items=index.items, norms=norms,
+                   codes=_host(index.codes).view(np.uint32),
+                   range_id=_host(index.range_id),
+                   live=np.ones((norms.shape[0],), bool),
+                   upper=_host(index.upper), lower=_host(index.lower),
+                   edges=partition_edges(norms, index.num_ranges, scheme),
+                   A=index.A, code_len=index.code_len,
+                   hash_bits=index.hash_bits, eps=index.eps,
+                   **{"device": index.items.device, **kw})
+
+    @classmethod
     def from_composed(cls, cidx, **kw) -> "MutableIndex":
         """Mount a spec-built :class:`repro_torch.core.index.ComposedIndex`
         of a packed family (SIMPLE-LSH or SIGN-ALSH), flat with m = 1 or
@@ -218,6 +242,22 @@ class MutableIndex:
                    family=cidx.family,
                    **{"impl": cidx.spec.impl,
                       "device": cidx.items.device, **kw})
+
+    @classmethod
+    def from_simple_lsh(cls, index, **kw) -> "MutableIndex":
+        """Mount a legacy :class:`~repro_torch.core.simple_lsh.SimpleLSHIndex`
+        (one range at the global max norm U) on the index's device."""
+        norms = _host(index.norms)
+        return cls(items=index.items, norms=norms,
+                   codes=_host(index.codes).view(np.uint32),
+                   range_id=np.zeros((norms.shape[0],), np.int32),
+                   live=np.ones((norms.shape[0],), bool),
+                   upper=np.asarray([float(index.U)], np.float32),
+                   lower=np.asarray([float(norms.min())], np.float32),
+                   edges=np.zeros((0,), np.float32),
+                   A=index.A, code_len=index.code_len,
+                   hash_bits=index.code_len, eps=DEFAULT_EPS,
+                   **{"device": index.items.device, **kw})
 
     # -- sizes ---------------------------------------------------------------
 
@@ -275,6 +315,9 @@ class MutableIndex:
         j = self.monitor.skew_range()
         if j is not None and j not in self._skew_muted:
             self._rebalance(j)
+        if self.tracker is not None:
+            self.tracker.count("repro.streaming.inserts", k)
+            self.tracker.observe("repro.streaming.insert_batch", k)
         return ids
 
     def delete(self, ids) -> None:
@@ -310,6 +353,8 @@ class MutableIndex:
         if delta_hits:
             self.delta._sync()
         self._push_live()
+        if self.tracker is not None:
+            self.tracker.count("repro.streaming.deletes", ids_arr.size)
         if self.tomb_csr > self.max_tombstones:
             self.compact()
 
@@ -417,9 +462,17 @@ class MutableIndex:
             raise ValueError("num_probe must be positive")
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
-        cand = self._candidates(queries, num_probe)
-        return merged_rerank(self.items, self.delta.items, self.live_dev,
-                             self.delta.live, queries, cand, int(k))
+        tr = self.tracker
+        with span_or_null(tr, "repro.streaming.query") as sp:
+            cand = self._candidates(queries, num_probe)
+            vals, ids = merged_rerank(
+                self.items, self.delta.items, self.live_dev,
+                self.delta.live, queries, cand, int(k))
+            sp.sync(ids)
+        if tr is not None:
+            tr.count("repro.streaming.queries", queries.shape[0])
+            tr.observe("repro.streaming.probe_width", num_probe)
+        return vals, ids
 
     def live_vectors(self) -> Tuple[torch.Tensor, np.ndarray]:
         """(live item vectors, matching global ids) — storage rows first,
@@ -433,6 +486,9 @@ class MutableIndex:
         return vecs, gids
 
     def stats(self) -> dict:
+        # polling stats is the drift-reporting moment: the monitor's
+        # quantiles also go out as gauges and an event to a tracker
+        self.monitor.report(self.tracker)
         return {
             "live": self.live_count,
             "store_rows": self.store_size,
@@ -449,8 +505,16 @@ class MutableIndex:
 
     # -- internals -----------------------------------------------------------
 
+    def set_tracker(self, tracker) -> None:
+        """Attach (or detach, with None) a :class:`repro_torch.obs.Tracker`."""
+        self.tracker = tracker
+
     def _event(self, kind: str, **info) -> None:
+        # the list stays the surface the parity tests read; a tracker also
+        # gets each event as a typed record
         self.events.append(dict(kind=kind, **info))
+        if self.tracker is not None:
+            self.tracker.event(f"repro.streaming.{kind}", **info)
 
     def _assign(self, norms: np.ndarray) -> np.ndarray:
         if self.num_ranges == 1:
@@ -674,14 +738,10 @@ def build(items, generator: Optional[torch.Generator], code_len: int,
           impl: str = "auto", params=None, device=None,
           **kw) -> MutableIndex:
     """Algorithm 1 build wrapped as a mutable index, on ``device`` (the
-    card unless ``device="cpu"``): ``core.index.build`` of the RANGE-LSH
-    spec (``strict=False``, as the reference's ``range_lsh.build``), then
-    :meth:`MutableIndex.from_composed`. ``generator`` draws the
-    projections unless ``params`` hands them in."""
-    from repro_torch.core.index import IndexSpec
-    from repro_torch.core.index import build as build_index
-    spec = IndexSpec(family="simple", code_len=code_len, m=m, scheme=scheme,
-                     eps=eps, impl=impl)
-    cidx = build_index(spec, items, generator, params=params, strict=False,
-                       device=device)
-    return MutableIndex.from_composed(cidx, **kw)
+    card unless ``device="cpu"``): :func:`repro_torch.core.range_lsh.build`
+    then :meth:`MutableIndex.from_range_lsh`. ``generator`` draws the
+    projections unless ``params`` hands them in; ``kw`` (capacity,
+    tracker, ...) goes to the index."""
+    idx = range_lsh.build(items, generator, code_len, m, scheme=scheme,
+                          eps=eps, impl=impl, params=params, device=device)
+    return MutableIndex.from_range_lsh(idx, scheme=scheme, impl=impl, **kw)

@@ -396,3 +396,96 @@ def test_mismatched_shapes_raise_before_any_launch(cuda_device, case, impl):
     with pytest.raises(ValueError, match="must"):
         call(impl)
     assert not any(ops.launch_counts.values())
+
+
+def _small_index(device):
+    """A 3,000-item RANGE-LSH index (m 8, 16 bits) on ``device`` and 24
+    queries."""
+    from repro_torch.core.index import IndexSpec, build
+    rng = np.random.default_rng(70)
+    items = (rng.standard_normal((3000, 24))
+             * np.exp(0.8 * rng.standard_normal((3000, 1)))).astype(
+                 np.float32)
+    queries = torch.as_tensor(rng.standard_normal((24, 24)).astype(
+        np.float32), device=device)
+    idx = build(IndexSpec(family="simple", code_len=16, m=8), items,
+                torch.Generator(device=device).manual_seed(3),
+                device=device)
+    return idx, queries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["bucket", "dense", "fused", "fused_int8"])
+def test_tracked_engine_equals_bare_on_the_card(cuda_device, arm):
+    """A tracked engine returns the bare engine's results bit for bit on
+    the card, records every stage span, and each op's ``.cuda`` dispatch
+    count equals its launches (``fused_query``'s: both builds)."""
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.obs import RingBufferSink, Tracker
+    idx, queries = _small_index(cuda_device)
+    quantized = arm == "fused_int8"
+    eng = arm.split("_")[0]
+    bare = QueryEngine(idx, engine=eng, quantized=quantized)
+    tr = Tracker([RingBufferSink()])
+    inst = QueryEngine(idx, engine=eng, quantized=quantized,
+                       buckets=bare.buckets, tracker=tr)
+    want = bare.query(queries, 10, 300)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.set_dispatch_tracker(tr)
+    try:
+        got = inst.query(queries, 10, 300)
+    finally:
+        ops.set_dispatch_tracker(None)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert {"repro.engine.query", "repro.engine.hash_encode",
+            "repro.engine.fused_query" if eng == "fused"
+            else "repro.engine.re_rank"} <= set(tr.hists)
+    launched = dict(ops.launch_counts)
+    launched["fused_query"] += launched.pop("fused_query_int8")
+    counted = {op: int(tr.counters.get(
+        f"repro.kernels.dispatch.{op}.cuda", 0)) for op in launched}
+    assert counted == launched
+    assert not any(k.endswith(".ref") for k in tr.counters)
+
+
+@pytest.mark.cuda
+def test_span_sync_waits_for_the_stream_the_work_is_on(cuda_device):
+    """A span's sync waits for the current stream of the registered
+    tensor's device (a side stream here), so it ends after the work."""
+    from repro_torch.obs import Tracker
+    tr = Tracker()
+    side = torch.cuda.Stream(device=cuda_device)
+    a = torch.randn((2048, 2048), device=cuda_device)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        with tr.span("work") as sp:
+            out = a
+            for _ in range(8):
+                out = out @ a
+            assert sp.sync((out, [a])) is not None
+        assert side.query()
+    assert tr.hists["work"].count == 1
+
+
+@pytest.mark.cuda
+def test_legacy_bucket_query_launches_bucket_match(cuda_device):
+    """The legacy RANGE-LSH shim's bucket engine matches the directory
+    with bucket_match on the card and returns the spec API's ids."""
+    from repro_torch.core import range_lsh
+    from repro_torch.core.index import IndexSpec, build
+    rng = np.random.default_rng(71)
+    items = rng.standard_normal((3000, 24)).astype(np.float32)
+    q = torch.as_tensor(rng.standard_normal((16, 24)).astype(np.float32),
+                        device=cuda_device)
+    idx = range_lsh.build(items, torch.Generator(device=cuda_device)
+                          .manual_seed(4), 16, 8)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    sv, si = range_lsh.query(idx, q, 10, 200, engine="bucket")
+    assert ops.launch_counts["bucket_match"] == 1
+    assert ops.launch_counts["hamming_scan"] == 0
+    cidx = build(IndexSpec(family="simple", code_len=16, m=8,
+                           engine="bucket"), items, params=idx.A)
+    cv, ci = cidx.query(q, 10, 200)
+    assert torch.equal(si, ci)

@@ -249,7 +249,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     assert {f"src/repro_torch/{m}.py" for m in (
         "streaming/delta", "streaming/drift", "streaming/engine",
         "streaming/index", "streaming/persist", "checkpoint/manager",
-        "kernels/ops")} <= names
+        "kernels/ops", "obs/tracker", "obs/trace", "obs/cost",
+        "core/simple_lsh", "core/range_lsh")} <= names
     for path in files:
         bad = imports_of(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

@@ -39,6 +39,7 @@ from repro_torch.core import planner
 from repro_torch.core.bucket_index import build_buckets
 from repro_torch.core.engine import bucket_candidates, dense_candidates
 from repro_torch.kernels import ops
+from repro_torch.obs import Tracker
 from repro_torch.streaming.delta import (DeltaBuffer, composite_key,
                                          directory_keys)
 
@@ -321,8 +322,15 @@ def test_port_build_flat_and_ranged_match_a_rebuild(data):
             np.testing.assert_array_equal(
                 mi.candidates(t(q), 60).numpy(),
                 rebuild_candidates(mi, t(q), 60, engine))
-    with pytest.raises(ValueError, match="trackers are not ported"):
-        streaming.build(items, gen, 12, 8, device="cpu", tracker=object())
+    # a tracker is accepted and mirrors every event of the index
+    tr = Tracker()
+    mi = streaming.build(items, gen, 12, 8, capacity=32, device="cpu",
+                         tracker=tr)
+    mi.insert(t(pool[:1] * 3 * float(mi.upper.max())
+                / np.linalg.norm(pool[0])))
+    assert mi.events and [e["name"] for e in tr.events] == \
+        [f"repro.streaming.{e['kind']}" for e in mi.events]
+    assert tr.counters["repro.streaming.inserts"] == 1
 
 
 def _drift_case(case, items, pool):
