@@ -111,6 +111,36 @@ Phases, each fatal on failure:
    ``chiprun_out/obs_fused_batch_trace.json``. Then ``bucket_match`` is
    held against its plain version at the legacy directory's shape.
 
+7. LSH-decode serving and the distributed engine. Qwen3-0.6B at full
+   width (28 layers, d 1024, 16/8 heads, head_dim 128, d_ff 3072, vocab
+   151,936 padded to 152,064, tied embeddings), bf16 weights drawn from a
+   seeded generator on the card, the vocabulary's padding rows zero. The
+   launch counters and a dispatch tracker are zeroed just before the path
+   and read right after its last call. The path: the vocab index
+   (code_len 128, 64 ranges), the sharded heads' indexes (code_len 64, 16
+   ranges, one shard and four) and the streaming head's, then 8 requests
+   of 64 seeded tokens, 16 greedy tokens each, through ``BatchedServer``
+   with every head (exact; LSH dense at 1,024 probes and at num_probe =
+   V; LSH bucket, fused f32 and int8 at V; sharded over a one-rank NCCL
+   group and over 4 in-process shards at V; streaming at V, then 64
+   inserts, 16 deletes and a second call); the head's planner fitted on
+   512 held-out prefill states and a server at recall target 0.9; the
+   distributed engine over slice 1's index (phase 2's parameters and
+   calibration) on 4 in-process shards and on the NCCL group, both arms,
+   planned budgets and target 0.9, 2 batches of 64. Then the checks:
+   every kernel of the path launched, each op's ``.cuda`` dispatch count
+   equals its launches and no ``.ref`` dispatch appears; at num_probe = V
+   every LSH head's tokens equal the exact head's; no deleted token comes
+   back; recall@1 of the calibrated head against the exact head on 512
+   fresh prefill states is at least 0.85; the distributed ids equal
+   ``QueryEngine``'s. Printed: each head's prefill, decode-step and head
+   span p50s and tokens/s, and a profile of one decode step (exact head)
+   and one fused head call. Then the kernels at the path's new shapes:
+   ``hash_encode`` at 152,064 x 1024 x 122 (with the 8-row step inside
+   its row) and x 60, ``hamming_scan`` and ``bucket_match`` at 8 x the
+   vocabulary, ``bucket_gather`` and both fused builds at num_probe = V,
+   ``delta_scan`` at the streaming head's buffer.
+
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside it, the script exits
@@ -165,6 +195,21 @@ OBS_BATCHES = 4           # tracked 64-query batches in each arm
 LEGACY_M = 64             # the RANGE-LSH shim's ranges (Fig. 2's m at L 32)
 LEGACY_PROBE = 0.005      # the legacy queries' num_probe, a share of N
 TRACE_DIR = Path("chiprun_out")
+SERVE_ARCH = "qwen3_0_6b"  # full width: 28 layers, d 1024, vocab 151,936
+SERVE_BATCH = 8           # requests of a generate call
+SERVE_PROMPT = 64         # prompt tokens
+SERVE_MAX_SEQ = 128
+SERVE_STEPS = 16          # greedy tokens a request
+SERVE_CAL = 512           # held-out prefill states for the head's planner
+SERVE_RECALL = 0.85       # recall@1 floor of the head at target 0.9
+SERVE_INSERTS, SERVE_DELETES = 64, 16
+DIST_SHARDS = 4           # in-process shards of the slice-1 index
+DIST_BATCHES = 2          # 64-query batches through the distributed arms
+SERVE_KERNELS = ("hash_encode", "hamming_scan", "bucket_match",
+                 "bucket_gather", "fused_query", "fused_query_int8",
+                 "delta_scan")
+SERVE_SPANS = ("repro.serve.prefill", "repro.serve.decode_step",
+               "repro.serve.topk_head")
 # every stage span of each arm (the reference's names)
 ARM_SPANS = {
     "fused": ("repro.engine.query", "repro.engine.hash_encode",
@@ -1264,6 +1309,412 @@ def obs_phase(ds, idx, arms, budgets, mi, ops, dev, card):
     return launches, shapes, cases
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_slice1(ds, idx, budgets, group):
+    """The distributed engine over slice 1's index (phase 2's hash
+    parameters and calibration) on ``group``: both arms, the planned
+    budgets at target 0.9 and ``recall_target``, ``DIST_BATCHES`` batches.
+    Returns the per-arm (ids, ms) and the sharded index's shape."""
+    import torch
+    from repro_torch.core import distributed
+    spec = dataclasses.replace(idx.spec, recall_target=None)
+    sidx = distributed.build_sharded(spec, ds.items, None, group.size,
+                                     params=idx.params,
+                                     device=ds.items.device)
+    sidx = distributed.shard_index(sidx._replace(calib=idx.calib), group)
+    out = {}
+    for arm in ("bucket", "dense"):
+        eng = distributed.DistributedEngine(sidx, group, engine=arm)
+        ids, ms = [], []
+        for b in range(DIST_BATCHES):
+            qb = ds.queries[b * BATCH:(b + 1) * BATCH]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, i = eng.query(qb, K, budgets=budgets)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            _, i2 = eng.query(qb, K, recall_target=RECALL_TARGET)
+            ids.append((i, i2))
+        out[arm] = (ids, ms)
+    return out, (sidx.num_shards, sidx.rows_per_shard, sidx.num_buckets)
+
+
+def serve_phase(ds, idx, budgets, arms, ops, dev, card):
+    """Phase 7: LSH-decode serving of Qwen3-0.6B at full width (random
+    bf16 weights from a seed) through every head of ``BatchedServer``, the
+    head's recall contract, and the distributed engine over slice 1's
+    index. The launch counters and a dispatch tracker are zeroed just
+    before the path and read right after its last call, before any check
+    or case input. Returns the path's launch counts and shapes and the
+    kernel cases at the shapes the path gave them."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import distributed, hashing
+    from repro_torch.core.bucket_index import build_bucket_index
+    from repro_torch.core.engine import _probe_runs, encode_queries
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, lm_head
+    from repro_torch.obs import RingBufferSink, Tracker
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    t0 = time.perf_counter()
+    params = lm.init_params(gen, cfg, device=dev)
+    # vocab-padding rows are never real tokens: zero, as a checkpoint's
+    # padding would be, so that no head can pick one
+    params["embed"][cfg.vocab:] = 0
+    unembed = lm._unembed_matrix(params, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(
+        params))
+    print(f"serve: {cfg.name} d={cfg.d_model} layers={cfg.n_layers} "
+          f"heads={cfg.n_heads}/{cfg.n_kv} head_dim={cfg.resolved_head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} (padded {cfg.padded_vocab}), "
+          f"{n_params} bf16/f32 params drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def prompts(n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(0, cfg.vocab, (n, SERVE_PROMPT), generator=g,
+                             device=dev)
+
+    reqs = prompts(SERVE_BATCH, SEED + 71)
+    cal_prompts = prompts(SERVE_CAL, SEED + 72)
+    fresh_prompts = prompts(SERVE_CAL, SEED + 73)
+    stream_rows = torch.randn((SERVE_INSERTS, cfg.d_model), device=dev,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(SEED + 74)) * 0.05
+    V = cfg.padded_vocab
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                             f"{free_port()}", rank=0, world_size=1)
+    nccl = distributed.ProcessShardGroup()
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    dispatch = Tracker([RingBufferSink(capacity=1 << 10)])
+    ops.set_dispatch_tracker(dispatch)
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        vidx = lm_head.build_vocab_index(unembed, gen)
+        torch.cuda.synchronize()
+        t_vocab = time.perf_counter() - t0
+        sharded = {}
+        for label, S in (("sharded_nccl", 1), ("sharded_4", 4)):
+            t0 = time.perf_counter()
+            sharded[label] = serve.build_sharded_vocab_index(
+                unembed, gen, num_shards=S, true_vocab=cfg.vocab)
+            torch.cuda.synchronize()
+            print(f"serve: {label} index ({S} shard(s), code_len 64, 16 "
+                  f"ranges) {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        streaming = serve.build_streaming_vocab_index(unembed, gen)
+        torch.cuda.synchronize()
+        print(f"serve: vocab index (code_len 128, 64 ranges, "
+              f"{vidx.hash_bits} hash bits) {t_vocab:.3f} s; streaming "
+              f"index {time.perf_counter() - t0:.2f} s")
+        heads = {
+            "exact": dict(),
+            "lsh_dense_1024": dict(lsh_decode=True, vocab_index=vidx,
+                                   num_probe=lm_head.DEFAULT_NUM_PROBE),
+            "lsh_dense": dict(lsh_decode=True, vocab_index=vidx,
+                              num_probe=V),
+            "lsh_bucket": dict(lsh_decode=True, vocab_index=vidx,
+                               num_probe=V, engine="bucket"),
+            "fused": dict(lsh_decode=True, vocab_index=vidx, num_probe=V,
+                          engine="fused"),
+            "fused_int8": dict(lsh_decode=True, vocab_index=vidx,
+                               num_probe=V, engine="fused", quantized=True),
+            "sharded_nccl": dict(sharded_index=sharded["sharded_nccl"],
+                                 shard_group=nccl, num_probe=V),
+            "sharded_4": dict(sharded_index=sharded["sharded_4"],
+                              num_probe=V),
+            "streaming": dict(streaming_index=streaming, num_probe=V),
+        }
+        servers = {}
+        for name, kw in heads.items():
+            tr = Tracker([RingBufferSink(capacity=1 << 12)])
+            servers[name] = serve.BatchedServer(
+                cfg, params, max_seq=SERVE_MAX_SEQ, batch=SERVE_BATCH,
+                tracker=tr, device=dev, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = servers[name].generate(reqs, SERVE_STEPS)
+            torch.cuda.synchronize()
+            results[name] = dict(tokens=toks, tracker=tr,
+                                 wall=time.perf_counter() - t0)
+        # catalog mutations on the streaming head, then a second call
+        st_server = servers["streaming"]
+        first = results["streaming"]["tokens"]
+        banned = sorted({int(v) for v in first[:, :2].reshape(-1)})
+        extra = [int(v) for v in torch.randperm(
+            cfg.vocab, generator=torch.Generator().manual_seed(SEED + 75))
+            if int(v) not in banned][:SERVE_DELETES - len(banned)]
+        deleted = banned + extra
+        st_server.delete_tokens(deleted)
+        new_ids = st_server.insert_tokens(
+            stream_rows, np.arange(SERVE_INSERTS) + 7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        after = st_server.generate(reqs, SERVE_STEPS)
+        torch.cuda.synchronize()
+        t_after = time.perf_counter() - t0
+        # the head's recall contract: a planner fitted on held-out prefill
+        # states, then checked on fresh ones
+        t0 = time.perf_counter()
+        cal_h = torch.cat([lm.prefill(params, cal_prompts[s:s + 64], cfg)[0]
+                           for s in range(0, SERVE_CAL, 64)])
+        calib = lm_head.calibrate_vocab_index(vidx, unembed, cal_h)
+        torch.cuda.synchronize()
+        t_cal = time.perf_counter() - t0
+        vcal = vidx._replace(calib=calib)
+        fresh_h = torch.cat([lm.prefill(params, fresh_prompts[s:s + 64],
+                                        cfg)[0]
+                             for s in range(0, SERVE_CAL, 64)])
+        _, lsh_ids = lm_head.lsh_topk_tokens(vcal, fresh_h, unembed, k=1,
+                                             recall_target=RECALL_TARGET)
+        tr = Tracker([RingBufferSink(capacity=1 << 12)])
+        servers["recall_0.9"] = serve.BatchedServer(
+            cfg, params, max_seq=SERVE_MAX_SEQ, lsh_decode=True,
+            vocab_index=vcal, recall_target=RECALL_TARGET, tracker=tr,
+            device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = servers["recall_0.9"].generate(reqs, SERVE_STEPS)
+        torch.cuda.synchronize()
+        results["recall_0.9"] = dict(tokens=toks, tracker=tr,
+                                     wall=time.perf_counter() - t0)
+        # the distributed engine over slice 1's index
+        dist_out = {}
+        for label, group in (("in-process x4",
+                              distributed.InProcessShardGroup(DIST_SHARDS)),
+                             ("nccl x1", nccl)):
+            dist_out[label] = dist_slice1(ds, idx, budgets, group)
+        torch.cuda.synchronize()
+    finally:
+        ops.set_dispatch_tracker(None)
+    launches = dict(ops.launch_counts)
+    shapes = dict(ops.launch_shapes)
+    print(f"launches on the phase-7 path: "
+          f"{ {k: launches[k] for k in SERVE_KERNELS} }")
+    idle = [op for op in SERVE_KERNELS if launches[op] == 0]
+    if idle:
+        fail(f"kernels never launched on the phase-7 path: {idle}")
+    counted = {op: int(dispatch.counters.get(
+        f"repro.kernels.dispatch.{op}.cuda", 0)) for op in ops.OPS}
+    launched = {op: launches[op] for op in ops.OPS}
+    launched["fused_query"] += launches["fused_query_int8"]
+    refs = sorted(k for k in dispatch.counters if k.endswith(".ref"))
+    if counted != launched or refs:
+        fail(f"serve: dispatch counts {counted} != launches {launched} "
+             f"(ref dispatches {refs})")
+    print(f"serve: dispatch .cuda == launches for every op, no .ref "
+          f"dispatch")
+
+    # -- the phase's checks ------------------------------------------------
+    exact = results["exact"]["tokens"]
+    for name, rec in results.items():
+        toks, tr = rec["tokens"], rec["tracker"]
+        if toks.shape != (SERVE_BATCH, SERVE_STEPS) or bool(
+                (toks < 0).any() | (toks >= cfg.padded_vocab).any()):
+            fail(f"serve: {name} tokens out of shape or range")
+        full = name not in ("exact", "lsh_dense_1024", "recall_0.9")
+        agree = float((toks == exact).float().mean())
+        if full and not torch.equal(toks, exact):
+            fail(f"serve: {name} at num_probe = V differs from the exact "
+                 f"head in {int((toks != exact).sum())} tokens")
+        missing = [n for n in SERVE_SPANS if n not in tr.hists]
+        if missing:
+            fail(f"serve: {name} recorded no span {missing}")
+        p50 = {n.split(".")[-1]: 1e3 * tr.hists[n].quantile(0.5)
+               for n in SERVE_SPANS}
+        tok_s = SERVE_BATCH * SERVE_STEPS / rec["wall"]
+        print(f"serve: {name:14s} prefill {p50['prefill']:.3f} ms, "
+              f"decode_step p50 {p50['decode_step']:.3f} ms, topk_head "
+              f"p50 {p50['topk_head']:.3f} ms, {tok_s:.1f} tokens/s "
+              f"({SERVE_BATCH} x {SERVE_STEPS} in {rec['wall']:.3f} s), "
+              f"agreement with exact {agree:.4f} [{card}]")
+    if any(int(v) in set(deleted) for v in after.reshape(-1)):
+        fail("serve: a deleted token was generated after delete_tokens")
+    print(f"serve: streaming head after {SERVE_INSERTS} inserts (ids "
+          f"{int(new_ids[0])}..{int(new_ids[-1])}) and {len(deleted)} "
+          f"deletes: no deleted token generated, "
+          f"{SERVE_BATCH * SERVE_STEPS / t_after:.1f} tokens/s")
+    _, exact_ids = lm_head.exact_topk_tokens(fresh_h, unembed, 1)
+    recall = float((lsh_ids[:, 0] == exact_ids[:, 0]).float().mean())
+    width = servers["recall_0.9"].num_probe
+    print(f"serve: recall target {RECALL_TARGET}: planned num_probe "
+          f"{width} of {V}, recall@1 {recall:.4f} on {SERVE_CAL} fresh "
+          f"prefill states (calibration {t_cal:.2f} s on {SERVE_CAL})")
+    if recall < SERVE_RECALL:
+        fail(f"serve: recall@1 {recall:.4f} < {SERVE_RECALL}")
+    for label, (out, shape) in dist_out.items():
+        for arm, (ids, ms) in out.items():
+            for b, (i_budget, i_target) in enumerate(ids):
+                qb = ds.queries[b * BATCH:(b + 1) * BATCH]
+                _, want = arms[arm].query(qb, K, budgets=budgets)
+                if not (torch.equal(i_budget, want)
+                        and torch.equal(i_target, want)):
+                    fail(f"dist {label} {arm}: ids differ from QueryEngine "
+                         f"in batch {b}")
+            print(f"dist: {label} (shards, rows, buckets) {shape} {arm}: "
+                  f"ids equal QueryEngine's, budgets and target 0.9, "
+                  f"{statistics.median(ms):.1f} ms/batch of {BATCH} "
+                  f"[{card}]")
+    tdist.destroy_process_group()
+    # where a step's time goes: the model's decode step (exact head) and
+    # the fused head's query, one call each under the profiler
+    pf_h, pf_c = lm.prefill(params, reqs, cfg)
+    caches = lm.extend_cache(cfg, pf_c, SERVE_MAX_SEQ)
+    profile_batch("decode step with the exact head, batch of "
+                  f"{SERVE_BATCH}", lambda: servers["exact"].decode_fn(
+                      params, exact[:, 0], caches, SERVE_PROMPT), top=8)
+    profile_batch("fused f32 head at num_probe = V, batch of "
+                  f"{SERVE_BATCH}", lambda: servers["fused"]._fused_eng.query(
+                      pf_h.to(torch.float32), 1, V), top=6)
+    del caches, pf_c
+    print(f"serve: phase 7 path and checks {time.perf_counter() - t_phase:.1f} "
+          f"s (kernel rows follow)")
+
+    # -- the kernels' inputs at the shapes the path gave them ---------------
+    d, L, W = cfg.d_model, vidx.hash_bits, vidx.codes.shape[1]
+    items = unembed.T.to(torch.float32).contiguous()
+    # the build's encode input: rows over their range's effective bound
+    upper = vidx.upper
+    upper_eff = torch.where(
+        torch.bincount(vidx.range_id.long(), minlength=upper.shape[0]) > 0,
+        upper, upper.max())
+    xv = items / upper_eff[vidx.range_id.long()][:, None]
+    tail = torch.sqrt(torch.clamp_min(1.0 - torch.sum(xv * xv, -1), 0.0))
+    A, a_tail = vidx.A[:-1], vidx.A[-1]
+    hidden = fresh_h[:SERVE_BATCH].to(torch.float32)
+    qn = hashing.normalize(hidden)
+    zeros = torch.zeros((SERVE_BATCH,), device=dev)
+    q_codes = encode_queries(vidx, hidden)
+    buckets = build_bucket_index(vidx)
+    dir_b = buckets.num_buckets
+    match = ops.bucket_match(q_codes, buckets.bucket_code, L)
+    order = torch.argsort(buckets.rank[buckets.bucket_rid[None, :].long(),
+                                       match.long()], dim=-1, stable=True)
+    cum, starts = _probe_runs(buckets, order, V)
+    runs = held_runs(cum, V)
+    fused_eng = servers["fused"]._fused_eng
+    f_order = torch.argsort(fused_eng.buckets.rank[
+        fused_eng.buckets.bucket_rid[None, :].long(),
+        ops.bucket_match(q_codes, fused_eng.buckets.bucket_code,
+                         L).long()], dim=-1, stable=True)
+    f_cum, f_starts = _probe_runs(fused_eng.buckets, f_order, V)
+    f_runs = held_runs(f_cum, V)
+    items_csr = fused_eng._fused_arrays[0]
+    payload, scale = servers["fused_int8"]._fused_eng._fused_arrays[1:]
+    kp = 32
+    st_idx = servers["streaming"].streaming_index
+    s_codes = st_idx.encode_queries(hidden)
+    s_bits, s_w = st_idx.hash_bits, s_codes.shape[1]
+    s_A, s_tail = st_idx.A[:-1], st_idx.A[-1]
+    cap = st_idx.delta.codes.shape[0]
+
+    def fused_check(got, want):
+        return check_topk("fused_query (serve)", got[1], got[0], want[1],
+                          want[0], hidden, items_csr)
+
+    src = "src/repro_torch/kernels/csrc/"
+    cases = {
+        "hash_encode_vocab": dict(
+            call=lambda impl: ops.hash_encode(xv, A, tail, a_tail,
+                                              impl=impl),
+            bytes=4 * (V * d + d * L + V + L + V * W),
+            ops=2 * V * d * L + 2 * V * L, op_rate=PEAK_OPS_NO_FMA,
+            device=("hash_encode_tiled",), kernel="hash_encode",
+            path="serve", plain_reps=3,
+            source=src + "hash_encode.cu",
+            replaces="src/repro/kernels/hash_encode.py:83"),
+        "hash_encode_step": dict(
+            call=lambda impl: ops.hash_encode(qn, A, zeros, a_tail,
+                                              impl=impl),
+            bytes=4 * (SERVE_BATCH * d + d * L + SERVE_BATCH + L
+                       + SERVE_BATCH * W),
+            ops=2 * SERVE_BATCH * d * L + 2 * SERVE_BATCH * L,
+            op_rate=PEAK_OPS_NO_FMA, device=("hash_encode_tiled",),
+            kernel="hash_encode", path="serve",
+            probe_of="hash_encode_vocab",
+            source=src + "hash_encode.cu",
+            replaces="src/repro/kernels/hash_encode.py:83"),
+        # the streaming and sharded heads' encode (L 60, W 2) at the
+        # streaming build's shape, on the vocab build's rows
+        "hash_encode_vocab_w2": dict(
+            call=lambda impl: ops.hash_encode(xv, s_A, tail, s_tail,
+                                              impl=impl),
+            bytes=4 * (V * d + d * s_bits + V + s_bits + V * s_w),
+            ops=2 * V * d * s_bits + 2 * V * s_bits,
+            op_rate=PEAK_OPS_NO_FMA, device=("hash_encode_tiled",),
+            kernel="hash_encode", path="serve", plain_reps=3,
+            source=src + "hash_encode.cu",
+            replaces="src/repro/kernels/hash_encode.py:83"),
+        "hamming_scan_vocab": dict(
+            call=lambda impl: ops.hamming_scan(q_codes, vidx.codes,
+                                               impl=impl),
+            bytes=4 * (SERVE_BATCH * W + V * W + SERVE_BATCH * V),
+            ops=2 * SERVE_BATCH * V * W, ceiling=(SERVE_BATCH, V),
+            kernel="hamming_scan", path="serve",
+            source=src + "hamming.cu",
+            replaces="src/repro/kernels/hamming.py:46"),
+        "bucket_match_vocab": dict(
+            call=lambda impl: ops.bucket_match(q_codes, buckets.bucket_code,
+                                               L, impl=impl),
+            bytes=4 * (SERVE_BATCH * W + dir_b * W + SERVE_BATCH * dir_b),
+            ops=2 * SERVE_BATCH * dir_b * W + SERVE_BATCH * dir_b,
+            ceiling=(SERVE_BATCH, dir_b), kernel="bucket_match",
+            path="serve", source=src + "hamming.cu",
+            replaces="src/repro/kernels/bucket_probe.py:70"),
+        "bucket_gather_vocab": dict(
+            call=lambda impl: ops.bucket_gather(cum, starts, V, impl=impl),
+            bytes=4 * (2 * runs + SERVE_BATCH * V),
+            ops=2 * SERVE_BATCH * V, ceiling=(SERVE_BATCH, V),
+            device=("bucket_gather_kernel",), kernel="bucket_gather",
+            path="serve", source=src + "bucket_gather.cu",
+            replaces="src/repro/kernels/bucket_probe.py:124"),
+        "fused_query_vocab": dict(
+            call=lambda impl: ops.fused_query(hidden, f_cum, f_starts,
+                                              items_csr, V, 1, impl=impl),
+            bytes=4 * SERVE_BATCH * d + 8 * f_runs + V * (4 * d + 4),
+            ops=2 * (SERVE_BATCH * V + SERVE_BATCH * kp) * d,
+            check=fused_check, kernel="fused_query", path="serve",
+            source=src + "fused_query.cu",
+            replaces="src/repro/kernels/fused_query.py:156", cold=True),
+        "fused_query_int8_vocab": dict(
+            call=lambda impl: ops.fused_query(
+                hidden, f_cum, f_starts, items_csr, V, 1, payload=payload,
+                scale=scale, impl=impl),
+            bytes=(4 * SERVE_BATCH * d + 8 * f_runs + V * (d + 4)
+                   + SERVE_BATCH * kp * 4 * d),
+            ops=2 * (SERVE_BATCH * V + SERVE_BATCH * kp) * d,
+            check=fused_check, kernel="fused_query_int8",
+            path="serve", source=src + "fused_query.cu",
+            replaces="src/repro/kernels/fused_query.py:156", cold=True),
+        "delta_scan_vocab": dict(
+            call=lambda impl: ops.delta_scan(s_codes, st_idx.delta.codes,
+                                             st_idx.delta.live, s_bits,
+                                             impl=impl),
+            bytes=4 * (SERVE_BATCH * s_w + cap * s_w + SERVE_BATCH * cap)
+            + cap,
+            ops=2 * SERVE_BATCH * cap * s_w + 2 * SERVE_BATCH * cap,
+            ceiling=(SERVE_BATCH, cap), kernel="delta_scan", path="serve",
+            source=src + "hamming.cu",
+            replaces="src/repro/kernels/delta_scan.py:58"),
+    }
+    return launches, shapes, cases
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1656,6 +2107,16 @@ def main() -> int:
         ds, idx, {**arms, "fused": fused}, budgets, mindex, ops, dev, smi)
     paths["obs"] = (obs_launches, obs_shapes)
     compare(obs_cases)
+    del obs_cases
+
+    # -- 7. LSH-decode serving at Qwen3-0.6B's width; distributed -------------
+    serve_launches, serve_shapes, serve_cases = serve_phase(
+        ds, idx, budgets, {a: arms[a] for a in ("bucket", "dense")}, ops,
+        dev, smi)
+    paths["serve"] = (serve_launches, serve_shapes)
+    t_rows = time.perf_counter()
+    compare(serve_cases)
+    print(f"serve: phase 7 kernel rows {time.perf_counter() - t_rows:.1f} s")
     for row in rows:
         row["launches_by_path"] = {p_: runs_[row["kernel"]]
                                    for p_, (runs_, _) in paths.items()}

@@ -1,0 +1,10 @@
+"""Qwen/Qwen2-1.5B [arXiv:2407.10671]: 28L d=1536 12H (GQA kv=2)
+d_ff=8960, vocab 151936, QKV bias."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-1.5b", family="dense",
+    n_layers=28, d_model=1536, n_heads=12, n_kv=2, d_ff=8960, vocab=151936,
+    head_dim=128, qkv_bias=True, rope_theta=1000000.0,
+    tie_embeddings=True,
+)

@@ -184,3 +184,96 @@ def mutable_index_from_tree(tree: Mapping, *, device=None, **kw):
         mindex.calib = calibration_from_fields(cal)
         mindex.calib_stale = bool(int(cal["stale"]))
     return mindex
+
+
+def _param_tensor(a, device) -> torch.Tensor:
+    """A numpy parameter as a tensor: bf16 (ml_dtypes' ``bfloat16``, as
+    ``np.asarray`` of a JAX bf16 array gives it) carried bit for bit,
+    anything else as f32 or its integer type."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def lm_params_from_tree(tree: Mapping, *, device=None):
+    """The port's LM params (``repro_torch.models.lm``) from the
+    reference's param tree with numpy leaves (``jax.tree.map(np.asarray,
+    params)``), on ``device`` (the card unless ``device="cpu"``). The
+    layout is the same (layers stacked per pattern position); bf16 leaves
+    keep their bits."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        return _param_tensor(node, device)
+
+    return conv(tree)
+
+
+VOCAB_FIELDS = ("codes", "range_id", "upper", "A", "code_len",
+                "hash_bits", "eps")
+
+
+def vocab_index_from_fields(fields: Mapping, *, calib: Optional[Mapping] = None,
+                            device=None):
+    """The port's :class:`~repro_torch.models.lm_head.VocabIndex` from the
+    reference's fields (``VOCAB_FIELDS``; arrays as numpy, packed uint32
+    codes become int32 with the same bits) and, when given, its
+    calibration table's fields, on ``device``."""
+    from repro_torch.models.lm_head import VocabIndex
+    device = resolve_device(device)
+    return VocabIndex(
+        codes=torch.as_tensor(np.ascontiguousarray(
+            np.asarray(fields["codes"], np.uint32)).view(np.int32),
+            device=device),
+        range_id=torch.as_tensor(np.array(fields["range_id"], np.int32),
+                                 device=device),
+        upper=torch.as_tensor(np.array(fields["upper"], np.float32),
+                              device=device),
+        A=torch.as_tensor(np.array(fields["A"], np.float32), device=device),
+        code_len=int(fields["code_len"]), hash_bits=int(fields["hash_bits"]),
+        eps=float(fields["eps"]),
+        calib=None if calib is None else calibration_from_fields(calib))
+
+
+SHARDED_FIELDS = ("params", "rank", "dir_code", "dir_rid", "dir_size",
+                  "dir_shard", "dir_local_start", "items", "codes",
+                  "range_id", "bucket_of", "bucket_off", "perm", "valid",
+                  "num_shards", "rows_per_shard", "num_items", "hash_bits")
+
+
+def sharded_index_from_fields(fields: Mapping, spec: Mapping, *,
+                              calib: Optional[Mapping] = None,
+                              impl: str = "auto", device=None):
+    """The port's :class:`~repro_torch.core.distributed.ShardedIndex` from
+    the reference's fields (``SHARDED_FIELDS``, arrays as numpy), its
+    spec's fields and, when given, its calibration table's, on
+    ``device``."""
+    from repro_torch.core.distributed import ShardedIndex
+    device = resolve_device(device)
+    pspec = spec_from_fields(spec, impl=impl)
+    ints = ("num_shards", "rows_per_shard", "num_items", "hash_bits")
+
+    def field(name):
+        a = fields[name]
+        if name in ints:
+            return int(a)
+        if name == "params":
+            return pspec.resolve_family().params_on(_host_params(a), device)
+        a = np.asarray(a)
+        if name in ("dir_code", "codes"):
+            a = np.ascontiguousarray(a).view(np.int32)
+        elif name == "items":
+            a = np.array(a, np.float32)
+        elif name == "valid":
+            a = np.array(a, bool)
+        else:
+            a = np.array(a, np.int32)
+        return torch.as_tensor(a, device=device)
+
+    return ShardedIndex(
+        spec=pspec, **{f: field(f) for f in SHARDED_FIELDS},
+        calib=None if calib is None else calibration_from_fields(calib))

@@ -62,6 +62,25 @@ def rerank_blocks(q: int, p: int, d: int, k: int) -> Tuple[int, int]:
     return 1, min(p, max(k, max_bytes // max(1, row)))
 
 
+def gathered_scores(queries: torch.Tensor, rows: torch.Tensor,
+                    ids: torch.Tensor) -> torch.Tensor:
+    """(Q, P) f32 inner products of each query with its rows ``rows[ids]``
+    (any float type, scored in f32 without TF32), gathered a block of
+    queries at a time so that at most ``RERANK_BYTES`` of f32 rows are
+    held."""
+    q, p = ids.shape
+    per_query = 4 * rows.shape[1] * max(p, 1)
+    qb = max(1, min(q, RERANK_BYTES // per_query))
+    queries = queries.to(torch.float32)
+    out = torch.empty((q, p), dtype=torch.float32, device=ids.device)
+    with full_f32():
+        for s in range(0, q, qb):
+            out[s:s + qb] = torch.einsum(
+                "qd,qpd->qp", queries[s:s + qb],
+                rows[ids[s:s + qb].long()].to(torch.float32))
+    return out
+
+
 def rerank(queries: torch.Tensor, items: torch.Tensor,
            cand_ids: torch.Tensor, k: int, *, tracker=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:

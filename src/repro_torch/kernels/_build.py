@@ -34,6 +34,8 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "hash_encode": ("hash_encode", "repro_hash_encode",
                     [_P, _P, _P, _P, _P, _LL] + [_I] * 6 + [_P]),
+    "hash_encode_tiled": ("hash_encode", "repro_hash_encode_tiled",
+                          [_P, _P, _P, _P, _P, _LL] + [_I] * 4 + [_P]),
     "hamming": ("hamming", "repro_hamming", [_P, _P, _P, _I, _LL, _I, _P]),
     "bucket_match": ("hamming", "repro_bucket_match",
                      [_P, _P, _P, _I, _LL, _I, _I, _P]),

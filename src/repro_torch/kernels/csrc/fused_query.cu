@@ -23,9 +23,14 @@
 //     walks forward, searching again only past a run's end, so a block reads
 //     only the cum entries its searches visit, never all of cum. Each warp
 //     scores 8 rows at a time with
-//     the query in registers: float2 loads for f32 rows (4d bytes apart,
+//     the query in registers, 512 columns at a time (a wider query, an LM's
+//     hidden state, is reloaded a 512-column slice at a time from the
+//     L1-resident query row, and each lane's sum carries across the
+//     slices; that loop is a separate WIDE build, so that queries of up to
+//     512 columns, loaded once per block, keep their registers and run as
+//     before): float2 loads for f32 rows (4d bytes apart,
 //     8-byte aligned for even d) and char2 for int8 rows (2-byte aligned for
-//     even d), 8 rows x ceil(d / 64) loads in flight per lane, and a
+//     even d), 8 rows x ceil(min(d, 512) / 64) loads in flight per lane, and a
 //     transposing butterfly that sums the 8 dots in 9 shuffles. The span's
 //     top-KB (KB = min(k', kSpan)) is found by an exact radix select of the
 //     order-preserving score keys in shared memory (warp-aggregated histogram
@@ -64,7 +69,7 @@ constexpr int kPer = kSpan / kThreads;      // slots per thread in scans
 constexpr int kRows = 8;                    // rows in flight per warp
 constexpr int kLanes = 32 / kRows;          // lanes that end with one row
 constexpr int kSpanBlocks = 4;              // span blocks an SM must hold
-constexpr int kMaxD = 512;                  // query held in registers
+constexpr int kMaxD = 512;                  // query columns in registers
 constexpr int kMergeThreads = 256;
 constexpr int kMergeStage = 2048;           // span-list entries staged at once
 constexpr float kNeg = -3e38f;
@@ -117,7 +122,8 @@ template <typename T> struct Row<T, 1> {
   }
 };
 
-// the query's values at this lane's columns: V * (lane + 32 m) + {0, V-1}
+// the query's values at this lane's columns of one kMaxD-wide slice:
+// V * (lane + 32 m) + {0, V-1}
 template <int V> struct QReg {
   static constexpr int kChunks = kMaxD / (32 * V);
   float2 q[kChunks];
@@ -152,28 +158,23 @@ __device__ __forceinline__ float reduce_rows(float (&a)[kRows], int lane) {
   return a[0];
 }
 
-// dots of the query with up to kRows rows (pos < 0: no row), phase-1 form
-// q . (row * scale) when SCALED, else q . row; lane kLanes * r returns row
-// r's dot
+// adds this lane's terms of the query slice [base, base + dw) (held in qr)
+// with up to kRows rows (pos < 0: no row) to acc, phase-1 form
+// q . (row * scale) when SCALED, else q . row
 template <typename T, int V, bool SCALED>
-__device__ float dot_rows(const QReg<V>& qr, const T* __restrict__ rows,
-                      const float* __restrict__ scale, const int (&pos)[kRows],
-                      int d, int lane) {
-  float acc[kRows], sc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    acc[r] = 0.0f;
-    sc[r] = (SCALED && pos[r] >= 0) ? __ldg(scale + pos[r]) : 1.0f;
-  }
+__device__ __forceinline__ void add_slice(
+    float (&acc)[kRows], const QReg<V>& qr, const T* __restrict__ rows,
+    const float (&sc)[kRows], const int (&pos)[kRows], int d, int base,
+    int dw, int lane) {
 #pragma unroll
   for (int m = 0; m < QReg<V>::kChunks; ++m) {
-    if (V * 32 * m >= d) break;
+    if (V * 32 * m >= dw) break;
     const int k = V * (lane + 32 * m);
     float2 v[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
-      v[r] = (pos[r] >= 0 && k < d)
-          ? Row<T, V>::load(rows + (long long)pos[r] * d + k)
+      v[r] = (pos[r] >= 0 && k < dw)
+          ? Row<T, V>::load(rows + (long long)pos[r] * d + base + k)
           : make_float2(0.0f, 0.0f);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -187,6 +188,34 @@ __device__ float dot_rows(const QReg<V>& qr, const T* __restrict__ rows,
       }
     }
   }
+}
+
+// dots of the query with up to kRows rows; lane kLanes * r returns row r's
+// dot. Up to kMaxD columns (WIDE false) qr holds the whole query, loaded
+// once by the caller; a WIDE query is reloaded from qrow a kMaxD-column
+// slice at a time, each lane summing its columns in increasing order
+// across the slices (a separate build, so that narrow widths keep the
+// registers they had)
+template <typename T, int V, bool SCALED, bool WIDE>
+__device__ float dot_rows(QReg<V>& qr, const float* __restrict__ qrow,
+                          const T* __restrict__ rows,
+                          const float* __restrict__ scale,
+                          const int (&pos)[kRows], int d, int lane) {
+  float acc[kRows], sc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    acc[r] = 0.0f;
+    sc[r] = (SCALED && pos[r] >= 0) ? __ldg(scale + pos[r]) : 1.0f;
+  }
+  if constexpr (WIDE) {
+    for (int base = 0; base < d; base += kMaxD) {
+      const int dw = min(d - base, kMaxD);
+      qr.load(qrow + base, dw, lane);
+      add_slice<T, V, SCALED>(acc, qr, rows, sc, pos, d, base, dw, lane);
+    }
+  } else {
+    add_slice<T, V, SCALED>(acc, qr, rows, sc, pos, d, 0, d, lane);
+  }
   return reduce_rows(acc, lane);
 }
 
@@ -194,7 +223,7 @@ __device__ float dot_rows(const QReg<V>& qr, const T* __restrict__ rows,
 __device__ __forceinline__ int pad(int x) { return x + (x >> 5); }
 constexpr int kSpanP = kSpan + kSpan / 32;
 
-template <typename T, int V, bool SCALED>
+template <typename T, int V, bool SCALED, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kSpanBlocks)
 fq_span_kernel(const float* __restrict__ queries,
                const int32_t* __restrict__ cum,
@@ -261,14 +290,16 @@ fq_span_kernel(const float* __restrict__ queries,
   __syncthreads();
 
   // phase-1 scores, 8 rows per warp in flight
+  const float* qrow = queries + q * d;
   QReg<V> qr;
-  qr.load(queries + q * d, d, lane);
+  if (!WIDE) qr.load(qrow, d, lane);
   for (int g = warp * kRows; g < n; g += kWarps * kRows) {
     int pos[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
       pos[r] = g + r < n ? spos[pad(g + r)] : -1;
-    const float s = dot_rows<T, V, SCALED>(qr, payload, scale, pos, d, lane);
+    const float s = dot_rows<T, V, SCALED, WIDE>(qr, qrow, payload, scale,
+                                                 pos, d, lane);
     const int x = g + lane / kLanes;
     if (lane % kLanes == 0 && x < n) score[pad(x)] = s;
   }
@@ -375,7 +406,7 @@ __device__ __forceinline__ int count_better(const float* v, const int* s,
   return lo;
 }
 
-template <int V>
+template <int V, bool WIDE>
 __global__ void __launch_bounds__(kMergeThreads)
 fq_merge_kernel(const float* __restrict__ queries,
                 const float* __restrict__ items,
@@ -444,14 +475,15 @@ fq_merge_kernel(const float* __restrict__ queries,
   }
 
   // rescore the survivors against the f32 rows (into nv)
+  const float* qrow = queries + q * d;
   QReg<V> qr;
-  qr.load(queries + q * d, d, lane);
+  if (!WIDE) qr.load(qrow, d, lane);
   for (int g = warp * kRows; g < KP; g += (kMergeThreads / 32) * kRows) {
     int pos[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) pos[r] = g + r < nrun ? rp[g + r] : -1;
-    const float s = dot_rows<float, V, false>(qr, items, nullptr, pos, d,
-                                              lane);
+    const float s = dot_rows<float, V, false, WIDE>(qr, qrow, items, nullptr,
+                                                    pos, d, lane);
     const int i = g + lane / kLanes;
     if (lane % kLanes == 0 && i < KP) nv[i] = i < nrun ? s : kNeg;
   }
@@ -477,7 +509,7 @@ int set_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int V, bool SCALED>
+template <typename T, int V, bool SCALED, bool WIDE>
 int launch(const void* queries, const void* cum, const void* starts,
            const void* payload, const void* scale, const void* items,
            void* part_val, void* part_slot, void* part_pos, void* part_cnt,
@@ -487,18 +519,18 @@ int launch(const void* queries, const void* cum, const void* starts,
   const int G = merge_group(KB, nspan);
   const size_t smem2 = sizeof(float) * (6 * (size_t)kprime +
                                         (3 * (size_t)KB + 1) * G);
-  int e = set_smem(fq_span_kernel<T, V, SCALED>, smem1);
-  if (!e) e = set_smem(fq_merge_kernel<V>, smem2);
+  int e = set_smem(fq_span_kernel<T, V, SCALED, WIDE>, smem1);
+  if (!e) e = set_smem(fq_merge_kernel<V, WIDE>, smem2);
   if (e) return e;
-  fq_span_kernel<T, V, SCALED><<<dim3((unsigned)nspan, (unsigned)Q),
-                                 kThreads, smem1, stream>>>(
+  fq_span_kernel<T, V, SCALED, WIDE><<<dim3((unsigned)nspan, (unsigned)Q),
+                                       kThreads, smem1, stream>>>(
       (const float*)queries, (const int32_t*)cum, (const int32_t*)starts,
       (const T*)payload, (const float*)scale, (float*)part_val,
       (int32_t*)part_slot, (int32_t*)part_pos, (int32_t*)part_cnt, S, d,
       total, KB, nspan);
   e = (int)cudaGetLastError();
   if (e) return e;
-  fq_merge_kernel<V><<<(unsigned)Q, kMergeThreads, smem2, stream>>>(
+  fq_merge_kernel<V, WIDE><<<(unsigned)Q, kMergeThreads, smem2, stream>>>(
       (const float*)queries, (const float*)items, (const float*)part_val,
       (const int32_t*)part_slot, (const int32_t*)part_pos,
       (const int32_t*)part_cnt, (float*)out_vals, (int32_t*)out_pos, d,
@@ -513,15 +545,14 @@ int dispatch(bool pairs, const void* queries, const void* cum,
              void* part_pos, void* part_cnt, void* out_vals, void* out_pos,
              int Q, int S, int d, int total, int kprime, int KB, int nspan,
              cudaStream_t s) {
-  if (pairs)
-    return launch<T, 2, SCALED>(queries, cum, starts, payload, scale, items,
-                                part_val, part_slot, part_pos, part_cnt,
-                                out_vals, out_pos, Q, S, d, total, kprime,
-                                KB, nspan, s);
-  return launch<T, 1, SCALED>(queries, cum, starts, payload, scale, items,
-                              part_val, part_slot, part_pos, part_cnt,
-                              out_vals, out_pos, Q, S, d, total, kprime, KB,
-                              nspan, s);
+#define FQ_LAUNCH(V, WIDE)                                                   \
+  launch<T, V, SCALED, WIDE>(queries, cum, starts, payload, scale, items,  \
+                             part_val, part_slot, part_pos, part_cnt,      \
+                             out_vals, out_pos, Q, S, d, total, kprime, KB, \
+                             nspan, s)
+  if (d > kMaxD) return pairs ? FQ_LAUNCH(2, true) : FQ_LAUNCH(1, true);
+  return pairs ? FQ_LAUNCH(2, false) : FQ_LAUNCH(1, false);
+#undef FQ_LAUNCH
 }
 
 }  // namespace
@@ -535,7 +566,7 @@ extern "C" int repro_fused_query(
     const void* items, void* part_val, void* part_slot, void* part_pos,
     void* part_cnt, void* out_vals, void* out_pos, int Q, int S, int d,
     int total, int kprime, int span, int KB, int nspan, void* stream) {
-  if (span != kSpan || d > kMaxD || KB > kSpan || KB > kprime)
+  if (span != kSpan || KB > kSpan || KB > kprime)
     return (int)cudaErrorInvalidValue;
   // two values a load when every row starts on a pair
   const uintptr_t row_align = payload_int8 ? 2 : 8;

@@ -43,6 +43,26 @@
 //    the layout of pack_bits. Bits >= L vote 0, so the pad bits of the last
 //    word are zero. NaN projections give 0 and -0.0 gives 1, as
 //    `proj >= 0` does.
+//
+// The resident design needs A whole and one slab of x a warp in shared
+// memory: at an LM's width (d = 1024, L = 122: A alone is 525 KB) it does
+// not fit. Those shapes go to a second, tiled design
+// (hash_encode_tiled_kernel), chosen by the caller (ops.hash_encode_plan):
+// a block owns BM rows x BN bits of the output and walks d in tiles of
+// BK = 16 (64 for a few rows), staging the x tile (BM x BK) and the A tile (BK x BN) by
+// cp.async into a double buffer, so the next tile's copy overlaps this
+// tile's sums; each thread keeps TM rows x TN bits of partial sums in
+// registers from one tile to the next, as the Pallas kernel's bd grid axis
+// carries its sums. Padding past d, N and L is copied as zeros (a zero term
+// leaves a sum unchanged: an f32 sum that starts at +0 is never -0). The
+// sums run in k order, each multiply and add rounded on its own, so codes
+// equal the plain version's bit for bit as in the resident design. Signs are
+// gathered by shared-memory atomicOr into each row's words and stored
+// coalesced. Two thread layouts: 8 rows x TN bits a thread for many rows
+// (TN = 8, 4 or 2 for word groups of 4, 2 or 1 words a block; the build of
+// a vocabulary), and one row x one bit a thread for a few rows (a decode
+// batch), where each block holds 8 rows x 32 bits and the grid spreads
+// rows and words over the SMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -246,6 +266,151 @@ int dispatch_bits(int rows, const float* x, const float* A,
                         blocks, s);
 }
 
+// -- tiled design: any d, a block owns BM rows x BN bits -------------------
+
+constexpr int kTileThreads = 256;
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(float* dst, const float* src,
+                                               bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"(BYTES), "r"(ok ? BYTES : 0));
+}
+
+// TN consecutive floats of a shared-memory row into registers
+template <int TN>
+__device__ __forceinline__ void load_bits(float (&a)[TN], const float* p) {
+  if constexpr (TN % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + j);
+      a[j] = v.x; a[j + 1] = v.y; a[j + 2] = v.z; a[j + 3] = v.w;
+    }
+  } else if constexpr (TN == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    a[0] = v.x; a[1] = v.y;
+  } else {
+    a[0] = *p;
+  }
+}
+
+// TM rows x TN bits a thread; BN bits (BN / 32 words) a block; BK k a tile
+template <int TM, int TN, int BN, int BK>
+__global__ void __launch_bounds__(kTileThreads)
+hash_encode_tiled_kernel(const float* __restrict__ x,
+                         const float* __restrict__ A,
+                         const float* __restrict__ tail,
+                         const float* __restrict__ a_tail,
+                         int32_t* __restrict__ out, long long n, int d,
+                         int L, int W) {
+  constexpr int GB = BN / TN;               // bit groups
+  constexpr int GR = kTileThreads / GB;     // row groups
+  constexpr int BM = GR * TM;               // rows a block
+  constexpr int WB = BN / 32;               // words a block
+  constexpr int XS = BK + 1;                // x tile row stride (banks)
+  static_assert(32 % TN == 0 && GB * TN == BN && GR * GB == kTileThreads,
+                "tile layout");
+  __shared__ __align__(16) float xs[2][BM * XS];
+  __shared__ __align__(16) float as[2][BK * BN];
+  __shared__ unsigned ws[BM * WB];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % GB, ty = tid / GB;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int c0 = blockIdx.y * BN;           // the block's first bit
+  for (int e = tid; e < BM * WB; e += kTileThreads) ws[e] = 0u;
+
+  // tile t of x (BM x BK) and of A (BK x BN) into buffer b, zeros past
+  // N, d and L
+  auto stage = [&](int t, int b) {
+    const int k0 = t * BK;
+    for (int e = tid; e < BM * BK; e += kTileThreads) {
+      const int r = e / BK, kk = e % BK;
+      const long long row = m0 + r;
+      const bool ok = row < n && k0 + kk < d;
+      cp_async_zfill<4>(&xs[b][r * XS + kk],
+                        ok ? x + row * d + k0 + kk : x, ok);
+    }
+    for (int e = tid; e < BK * BN; e += kTileThreads) {
+      const int kk = e / BN, c = e % BN;
+      const bool ok = k0 + kk < d && c0 + c < L;
+      cp_async_zfill<4>(&as[b][e],
+                        ok ? A + (size_t)(k0 + kk) * L + c0 + c : A, ok);
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  const int tiles = (d + BK - 1) / BK;
+  stage(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) stage(t + 1, (t + 1) & 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);   // tile t has landed
+    __syncthreads();
+    const float* X = xs[t & 1] + ty * TM * XS;
+    const float* Ab = as[t & 1] + tx * TN;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TN], xv[TM];
+      load_bits<TN>(a, Ab + kk * BN);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) xv[i] = X[i * XS + kk];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(xv[i], a[j]));
+    }
+    __syncthreads();                        // buffer t & 1 is refilled next
+  }
+
+  // tail term after the sum, signs into each row's words
+  const int cb = tx * TN;                   // the thread's first bit
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty * TM + i;
+    const long long row = m0 + r;
+    const bool live = row < n;
+    const float tr = live ? __ldg(tail + row) : 0.0f;
+    unsigned seg = 0;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int b = c0 + cb + j;
+      const float at = b < L ? __ldg(a_tail + b) : 0.0f;
+      const float proj = __fadd_rn(acc[i][j], __fmul_rn(tr, at));
+      if (live && b < L && proj >= 0.0f) seg |= 1u << ((cb + j) % 32);
+    }
+    if (seg) atomicOr(&ws[r * WB + cb / 32], seg);
+  }
+  __syncthreads();
+  for (int e = tid; e < BM * WB; e += kTileThreads) {
+    const long long row = m0 + e / WB;
+    const int word = blockIdx.y * WB + e % WB;
+    if (row < n && word < W) out[row * W + word] = (int32_t)ws[e];
+  }
+}
+
+template <int TM, int TN, int BN, int BK>
+int launch_tiled(const float* x, const float* A, const float* tail,
+                 const float* a_tail, int32_t* out, long long n, int d,
+                 int L, int W, cudaStream_t stream) {
+  constexpr int BM = (kTileThreads / (BN / TN)) * TM;
+  const long long bx = (n + BM - 1) / BM;
+  const int by = (W + BN / 32 - 1) / (BN / 32);
+  if (bx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  hash_encode_tiled_kernel<TM, TN, BN, BK>
+      <<<dim3((unsigned)bx, (unsigned)by), kTileThreads, 0, stream>>>(
+          x, A, tail, a_tail, out, n, d, L, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // rows: code rows a thread computes (1, 2 or 4; a warp's slab is 8 times
@@ -266,4 +431,30 @@ extern "C" int repro_hash_encode(const void* x, const void* A,
   return dispatch_bits<1>(rows, (const float*)x, (const float*)A,
                           (const float*)tail, (const float*)a_tail,
                           (int32_t*)out, n, d, L, W, warps, blocks, s);
+}
+
+
+// The tiled design (any d): layout 0 holds one row x one bit a thread
+// (8 rows x 32 bits a block, k tiles of 64), layouts 1, 2 and 3 hold 8
+// rows x 2, 4 or 8 bits a thread (128 rows x 32, 64 or 128 bits a block,
+// k tiles of 16). The grid covers N
+// and the W words; nothing is staged before the launch.
+extern "C" int repro_hash_encode_tiled(const void* x, const void* A,
+                                       const void* tail, const void* a_tail,
+                                       void* out, long long n, int d, int L,
+                                       int W, int layout, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const float* Af = (const float*)A;
+  const float* tf = (const float*)tail;
+  const float* af = (const float*)a_tail;
+  int32_t* o = (int32_t*)out;
+  switch (layout) {
+    case 0: return launch_tiled<1, 1, 32, 64>(xf, Af, tf, af, o, n, d, L, W, s);
+    case 1: return launch_tiled<8, 2, 32, 16>(xf, Af, tf, af, o, n, d, L, W, s);
+    case 2: return launch_tiled<8, 4, 64, 16>(xf, Af, tf, af, o, n, d, L, W, s);
+    case 3: return launch_tiled<8, 8, 128, 16>(xf, Af, tf, af, o, n, d, L,
+                                               W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -68,12 +68,17 @@ HASH_ROWS = (1, 2, 4)
 HASH_MAX_WARPS = 16
 _HASH_MIN_WARPS = 8
 _HASH_FILL = 8
+# hash_encode.cu's tiled design: (rows, bits) a thread, bits a block and
+# the k tile of each thread layout, and its threads a block
+HASH_TILE_LAYOUTS = ((1, 1, 32, 64), (8, 2, 32, 16), (8, 4, 64, 16),
+                     (8, 8, 128, 16))
+HASH_TILE_THREADS = 256
 
-# fused_query.cu: probe slots per span block (its kSpan), the widest query
-# it holds in registers (kMaxD), span-list entries its merge stages at once
-# (kMergeStage), and the span kernel's static shared memory
+# fused_query.cu: probe slots per span block (its kSpan), span-list entries
+# its merge stages at once (kMergeStage), and the span kernel's static
+# shared memory; any query width (a wider query than 512 loops its
+# register-held slice over d)
 FUSED_SPAN = 2048
-FUSED_MAX_D = 512
 FUSED_MERGE_STAGE = 2048
 _FUSED_STATIC_SMEM = 4 * (256 + 8 + 4)
 
@@ -171,10 +176,9 @@ def hash_encode(x: torch.Tensor, A: torch.Tensor,
     """Sign-projection encode to packed codes.
 
     x: (N, d) f32; A: (d, L) f32; optional SIMPLE-LSH fold: tail (N,),
-    a_tail (L,). Returns (N, ceil(L/32)) int32 (the uint32 bits). The
-    kernel stages A and each warp's slab of 8 or more rows of x in shared
-    memory, so it takes d <= 1452 for L <= 32 (d <= 806 for L <= 64, 557
-    for L <= 96) and raises ``ValueError`` above (see
+    a_tail (L,). Returns (N, ceil(L/32)) int32 (the uint32 bits). Any d
+    and L: the kernel stages A whole in shared memory where it fits beside
+    8 warps' slabs of x, and walks d in tiles otherwise (see
     ``hash_encode_plan``)."""
     N, d = x.shape
     L = A.shape[1]
@@ -202,42 +206,73 @@ def hash_encode(x: torch.Tensor, A: torch.Tensor,
                          (a_tail, "a_tail"))]
     W = (L + 31) // 32
     out = torch.empty((N, W), dtype=torch.int32, device=x.device)
-    _launch("hash_encode", "hash_encode", *(a.data_ptr() for a in args),
-            out.data_ptr(), N, d, L, W, plan.rows, plan.warps, plan.blocks,
-            shape=(N, d, L, W))
+    if plan.layout is None:
+        _launch("hash_encode", "hash_encode", *(a.data_ptr() for a in args),
+                out.data_ptr(), N, d, L, W, plan.rows, plan.warps,
+                plan.blocks, shape=(N, d, L, W))
+    else:
+        _launch("hash_encode", "hash_encode_tiled",
+                *(a.data_ptr() for a in args), out.data_ptr(), N, d, L, W,
+                plan.layout, shape=(N, d, L, W))
     return out
 
 
 class HashPlan(NamedTuple):
-    """Launch plan of ``hash_encode.cu``: ``rows`` code rows a thread,
-    slabs of ``slab`` rows (``slabs`` of them over N), ``warps`` a block
-    and ``blocks`` in the grid, and the dynamic shared memory in bytes."""
+    """Launch plan of ``hash_encode.cu``.
+
+    Resident design (``layout`` None): ``rows`` code rows a thread, slabs
+    of ``slab`` rows (``slabs`` of them over N), ``warps`` a block and
+    ``blocks`` in the grid, and the dynamic shared memory in bytes.
+    Tiled design: ``layout`` names the thread layout (``HASH_TILE_LAYOUTS``),
+    ``rows`` the rows a block, ``blocks`` the grid's blocks over rows and
+    words, ``smem`` its static shared memory; ``slab``/``slabs``/``warps``
+    are its k tile, the tiles over d and its warps."""
     rows: int
     slab: int
     slabs: int
     warps: int
     blocks: int
     smem: int
+    layout: Optional[int] = None
 
 
 def hash_encode_smem(d: int, L: int, rows: int, warps: int) -> int:
-    """Shared memory of a hash_encode block: A padded to 32 W columns,
-    a_tail, and one slab of ``HASH_SLAB * rows`` rows of x a warp."""
+    """Shared memory of a resident hash_encode block: A padded to 32 W
+    columns, a_tail, and one slab of ``HASH_SLAB * rows`` rows of x a
+    warp."""
     return 4 * ((d + 1) * 32 * ((L + 31) // 32)
                 + warps * HASH_SLAB * rows * d)
 
 
+def _hash_tile_rows(layout: int) -> int:
+    """Rows a block of the tiled design's thread layout holds."""
+    tm, tn, bn, _ = HASH_TILE_LAYOUTS[layout]
+    return (HASH_TILE_THREADS // (bn // tn)) * tm
+
+
+def hash_tile_smem(layout: int) -> int:
+    """Static shared memory of a tiled hash_encode block: double-buffered x
+    (rows x (k tile + 1)) and A (k tile x bits) tiles and the rows' words."""
+    _, _, bn, bk = HASH_TILE_LAYOUTS[layout]
+    bm = _hash_tile_rows(layout)
+    return 4 * (2 * bm * (bk + 1) + 2 * bk * bn + bm * (bn // 32))
+
+
 @functools.lru_cache(maxsize=64)
 def hash_encode_plan(N: int, d: int, L: int, sms: int) -> HashPlan:
-    """The most rows a thread that still leaves every one of ``sms`` SMs 8
-    warps' worth of slabs, then as many warps a block as shared memory
-    holds (at most 16) and the slabs spread over ``sms`` blocks need, but
-    8 or more so that A's staging is spread over 256 threads (a 64-row
-    batch runs as one 8-warp block); ``ValueError`` when A and one warp's
-    slab do not fit."""
-    if hash_encode_smem(d, L, 1, 1) > _SMEM_LIMIT:
-        raise ValueError(f"hash_encode: d={d} rows do not fit the "
-                         f"kernel's shared-memory staging")
+    """The resident design when A and 8 warps' one-row slabs fit shared
+    memory (``_HASH_MIN_WARPS``): the most rows a thread that still leaves
+    every one of ``sms`` SMs 8 warps' worth of slabs, then as many warps a
+    block as shared memory holds (at most 16) and the slabs spread over
+    ``sms`` blocks need, but 8 or more so that A's staging is spread over
+    256 threads (a 64-row batch runs as one 8-warp block).
+
+    Otherwise the tiled design, which takes any d and L: the 8-row layout
+    whose word group fits W (4, 2 or 1 words a block) when its blocks fill
+    the ``sms`` SMs, else one row and one bit a thread (8 rows x 32 bits a
+    block) so that a small batch still spreads over the card."""
+    if hash_encode_smem(d, L, 1, _HASH_MIN_WARPS) > _SMEM_LIMIT:
+        return _hash_tile_plan(N, d, L, sms)
     rows = 1
     for r in HASH_ROWS:
         if (-(-N // (HASH_SLAB * r)) >= _HASH_FILL * sms
@@ -251,6 +286,21 @@ def hash_encode_plan(N: int, d: int, L: int, sms: int) -> HashPlan:
     blocks = min(sms, -(-slabs // warps))
     return HashPlan(rows, slab, slabs, warps, blocks,
                     hash_encode_smem(d, L, rows, warps))
+
+
+def _hash_tile_plan(N: int, d: int, L: int, sms: int) -> HashPlan:
+    W = (L + 31) // 32
+    wide = 3 if W >= 3 else W               # 4, 2 or 1 words a block
+    layout = wide if _hash_tile_blocks(wide, N, W) >= sms else 0
+    bk = HASH_TILE_LAYOUTS[layout][3]
+    return HashPlan(_hash_tile_rows(layout), bk, -(-d // bk),
+                    HASH_TILE_THREADS // 32, _hash_tile_blocks(layout, N, W),
+                    hash_tile_smem(layout), layout)
+
+
+def _hash_tile_blocks(layout: int, N: int, W: int) -> int:
+    words = HASH_TILE_LAYOUTS[layout][2] // 32
+    return -(-N // _hash_tile_rows(layout)) * -(-W // words)
 
 
 def _check_packed(op: str, q_codes: torch.Tensor, db_codes: torch.Tensor,
@@ -526,11 +576,9 @@ class FusedPlan(NamedTuple):
 
 def fused_query_plan(Q: int, total: int, d: int, kprime: int) -> FusedPlan:
     """Span count, scratch shapes and shared memory of a fused_query
-    launch; ``ValueError`` when the query width or the survivor buffers
-    do not fit the kernels."""
-    if d > FUSED_MAX_D:
-        raise ValueError(f"fused_query: d={d} exceeds the kernel's "
-                         f"register-held query width {FUSED_MAX_D}")
+    launch; ``ValueError`` when the survivor buffers do not fit the
+    kernels' shared memory (the query width does not enter: the kernels
+    hold neither the query nor a row in shared memory)."""
     nspan = -(-total // FUSED_SPAN)
     kb = min(kprime, FUSED_SPAN)
     span_smem = 4 * (2 * (FUSED_SPAN + FUSED_SPAN // 32) + 3 * kb)

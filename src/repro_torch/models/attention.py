@@ -1,0 +1,276 @@
+"""Attention: GQA with qk_norm, bias, softcap and local windows (port of
+``repro/models/attention.py``, its GQA part).
+
+Two execution modes, plain PyTorch (the reference computes attention
+outside any Pallas kernel):
+
+* ``flash_attention`` — prefill: a loop over query chunks, each an online
+  softmax over key/value chunks (O(S * chunk) memory, never the full (S, S)
+  matrix), with causal block skipping (a chunk sweeps only the kv chunks
+  at or below the diagonal and inside the local window), the reference's
+  default.
+* ``decode_attention`` — one new token against a (B, S_max, KV, hd) cache.
+
+Layouts are the reference's: q (B, S, H, hd), k and v (B, S, KV, hd).
+MLA and the sequence-sharded decode combine come with a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import (PARAM_DTYPE, apply_rope, dense_init,
+                                       rms_norm, softcap)
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def attn_init(generator: torch.Generator, cfg: ModelConfig,
+              stack: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """One GQA layer's params (``stack`` leading axes: layers stacked per
+    pattern position, as the reference's vmapped init)."""
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            "MLA attention comes with a later slice of the port "
+            "(ROADMAP.md §1)")
+    hd = cfg.resolved_head_dim
+    dev = generator.device
+    p = {
+        "w_q": dense_init(generator, stack + (cfg.d_model, cfg.n_heads * hd)),
+        "w_k": dense_init(generator, stack + (cfg.d_model, cfg.n_kv * hd)),
+        "w_v": dense_init(generator, stack + (cfg.d_model, cfg.n_kv * hd)),
+        "w_o": dense_init(generator, stack + (cfg.n_heads * hd, cfg.d_model)),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("b_q", cfg.n_heads), ("b_k", cfg.n_kv),
+                            ("b_v", cfg.n_kv)):
+            p[name] = torch.zeros(stack + (width * hd,), dtype=PARAM_DTYPE,
+                                  device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros(stack + (hd,), dtype=torch.float32,
+                                  device=dev)
+        p["k_norm"] = torch.zeros(stack + (hd,), dtype=torch.float32,
+                                  device=dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# flash core (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _pick_chunk(S: int, want: int) -> int:
+    """Largest divisor of S that is <= want (seq lengths like 1500 or
+    4096+256 patches aren't powers of two)."""
+    want = min(want, S)
+    for c in range(want, 0, -1):
+        if S % c == 0:
+            return c
+    return S
+
+
+def _block_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                window: Optional[int]) -> torch.Tensor:
+    """(Cq, Ck) boolean keep-mask from absolute positions."""
+    d = q_pos[:, None] - k_pos[None, :]
+    keep = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if causal:
+        keep &= d >= 0
+    if window is not None:
+        keep &= d < window
+    return keep
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    logit_cap: Optional[float] = None,
+                    q_chunk: int = 1024, kv_chunk: int = 1024,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Chunked online-softmax attention.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.
+    q_pos: (Sq,), k_pos: (Sk,) absolute positions for masking.
+    Returns (B, Sq, H, hd) in q.dtype.
+    """
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    if H % KV:
+        raise ValueError(f"n_heads={H} must be a multiple of n_kv={KV}")
+    G = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    q_chunk = _pick_chunk(Sq, q_chunk)
+    kv_chunk = _pick_chunk(Sk, kv_chunk)
+    nq, nk = Sq // q_chunk, Sk // kv_chunk
+
+    qc = q.reshape(B, nq, q_chunk, KV, G, hd).permute(1, 0, 3, 4, 2, 5)
+    kc = k.reshape(B, nk, kv_chunk, KV, hd).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(B, nk, kv_chunk, KV, hd).permute(1, 0, 3, 2, 4)
+    qp = q_pos.reshape(nq, q_chunk)
+    kp = k_pos.reshape(nk, kv_chunk)
+
+    def run_q_chunk(i: int, lo: int, hi: int) -> torch.Tensor:
+        """Online-softmax sweep of query chunk i over kv chunks [lo, hi)."""
+        qi = qc[i].to(torch.float32)           # (B, KV, G, Cq, hd)
+        shape = (B, KV, G, q_chunk)
+        m = torch.full(shape, NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros(shape, dtype=torch.float32, device=q.device)
+        acc = torch.zeros(shape + (hd,), dtype=torch.float32,
+                          device=q.device)
+        for j in range(lo, hi):
+            s = torch.einsum("bkgqd,bkcd->bkgqc", qi,
+                             kc[j].to(torch.float32)) * scale
+            if logit_cap is not None:
+                s = softcap(s, logit_cap)
+            keep = _block_mask(qp[i], kp[j], causal, window)
+            s = torch.where(keep, s, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqc,bkcd->bkgqd", p, vc[j].to(torch.float32))
+            m = m_new
+        return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+    aligned = (causal and Sq == Sk and q_chunk == kv_chunk
+               and q_pos.numel() == k_pos.numel())
+    outs = []
+    for i in range(nq):
+        if aligned:
+            # causal block skipping: chunk i sweeps only kv chunks
+            # [lo_i, i], lo_i trimming blocks fully outside the window
+            lo = 0
+            if window is not None:
+                lo = max(0, (i * q_chunk - window) // kv_chunk)
+            outs.append(run_q_chunk(i, lo, i + 1))
+        else:
+            outs.append(run_q_chunk(i, 0, nk))
+    o = torch.stack(outs, dim=0)            # (nq, B, KV, G, Cq, hd)
+    o = o.permute(1, 0, 4, 2, 3, 5)
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def naive_attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                    logit_cap=None, scale=None):
+    """Reference O(S^2)-memory attention (tests + tiny smoke configs)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if logit_cap is not None:
+        s = softcap(s, logit_cap)
+    keep = _block_mask(q_pos, k_pos, causal, window)
+    s = torch.where(keep, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bckd->bqkgd", p, v.to(torch.float32))
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode (one token, KV cache)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_pos, *,
+                     window: Optional[int] = None,
+                     logit_cap: Optional[float] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, hd); caches: (B, S, KV, hd); cache_pos: current length.
+
+    Attends to positions [max(0, cache_pos-window), cache_pos]."""
+    B, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
+                     k_cache.to(torch.float32)) * scale
+    if logit_cap is not None:
+        s = softcap(s, logit_cap)
+    pos = torch.arange(S, device=q.device)
+    keep = pos <= cache_pos
+    if window is not None:
+        keep &= pos > cache_pos - window
+    s = torch.where(keep, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA layer: projections + rope + cache plumbing
+# ---------------------------------------------------------------------------
+
+
+class AttnCache(NamedTuple):
+    k: torch.Tensor          # (B, S, KV, hd)
+    v: torch.Tensor          # (B, S, KV, hd)
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
+    hd = cfg.resolved_head_dim
+    q = x @ p["w_q"]
+    k = x @ p["w_k"]
+    v = x @ p["w_v"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    q = q.reshape(q.shape[:-1] + (cfg.n_heads, hd))
+    k = k.reshape(k.shape[:-1] + (cfg.n_kv, hd))
+    v = v.reshape(v.shape[:-1] + (cfg.n_kv, hd))
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def gqa_forward(p, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig, *, layer_is_local: bool,
+                causal: bool = True) -> Tuple[torch.Tensor, AttnCache]:
+    """Full-sequence self-attention (prefill). x: (B, S, d).
+
+    Returns (output (B, S, d), cache of the projected K/V for decode reuse).
+    The reference's cross-attention and rope-free arms (``kv_override``,
+    ``use_rope``) serve the audio encoder-decoder, a later slice.
+    """
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.local_window if layer_is_local else None
+    o = flash_attention(q, k, v, positions, positions, causal=causal,
+                        window=window, logit_cap=cfg.attn_softcap)
+    out = o.reshape(o.shape[:2] + (-1,)) @ p["w_o"]
+    return out, AttnCache(k, v)
+
+
+def gqa_decode(p, x: torch.Tensor, cache: AttnCache, cache_pos,
+               cfg: ModelConfig, *, layer_is_local: bool,
+               ) -> Tuple[torch.Tensor, AttnCache]:
+    """One-token decode. x: (B, d); cache holds S_max slots; cache_pos is
+    the slot being written (an int or a 0-d tensor). The new key and value
+    are written into ``cache`` in place (the reference returns an updated
+    copy); the returned cache is the same tensors."""
+    q, k, v = _project_qkv(p, x[:, None, :], cfg)
+    pos = torch.as_tensor(cache_pos, device=x.device).reshape(1)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    q = q[:, 0]                                    # (B, H, hd)
+    cache.k[:, cache_pos] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, cache_pos] = v[:, 0].to(cache.v.dtype)
+    window = cfg.local_window if layer_is_local else None
+    o = decode_attention(q, cache.k, cache.v, cache_pos, window=window,
+                         logit_cap=cfg.attn_softcap)
+    out = o.reshape(o.shape[0], -1) @ p["w_o"]
+    return out, cache

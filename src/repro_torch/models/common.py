@@ -1,0 +1,88 @@
+"""Shared model building blocks: norms, RoPE, init, dtype policy (port of
+``repro/models/common.py``).
+
+Parameters are plain nested dicts of tensors (bf16 by default, f32 norm
+scales). Initializers draw from an explicit ``torch.Generator`` and create
+their tensors on the generator's device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+PARAM_DTYPE = torch.bfloat16
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def dense_init(generator: torch.Generator, shape: Tuple[int, ...],
+               dtype=PARAM_DTYPE, scale: Optional[float] = None
+               ) -> torch.Tensor:
+    """Truncated-normal (to ±2σ) fan-in init; ``shape`` may carry leading
+    stack axes (the fan-in is ``shape[-2]``)."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else fan_in ** -0.5
+    x = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (std * x).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               dtype=PARAM_DTYPE) -> torch.Tensor:
+    # std d^-0.5 keeps tied unembedding logits O(1) (gemma-style input
+    # scaling by sqrt(d) restores residual-stream magnitude where used).
+    x = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (d ** -0.5 * x).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    """RMSNorm in f32, output back in the input dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: ``cap * tanh(x / cap)``."""
+    return cap * torch.tanh(x / cap)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """Rotary position embedding. x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs   # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: ``(silu(x W_g) * (x W_u)) W_d``."""
+    g = torch.nn.functional.silu(x @ w_gate)
+    u = x @ w_up
+    return (g * u) @ w_down
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE over masked positions; logits f32-softmaxed."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -329,17 +329,74 @@ def test_hash_encode_kernel_equals_plain(cuda_device, L, n, d, row_offset,
 
 @pytest.mark.cuda
 def test_hash_encode_kernel_raises_past_its_shared_memory(cuda_device):
-    """d = 1453 at L = 27 raises; d = 1452 runs."""
+    """d = 605 at L = 27 is the widest resident shape (A and 8 warps'
+    slabs in shared memory); d = 606 and d = 1453 (past even one warp's
+    slab) run the tiled design: nothing raises, and both designs equal
+    the plain version."""
     rng = np.random.default_rng(450)
-    x = torch.as_tensor(rng.standard_normal((40, 1453)).astype(np.float32),
-                        device=cuda_device)
-    A = torch.as_tensor(rng.standard_normal((1453, 27)).astype(np.float32),
-                        device=cuda_device)
-    with pytest.raises(ValueError, match="shared-memory staging"):
-        ops.hash_encode(x, A, impl="cuda")
-    xs, As = x[:, :1452].contiguous(), A[:1452].contiguous()
-    assert torch.equal(ops.hash_encode(xs, As, impl="cuda"),
-                       ops.hash_encode(xs, As, impl="ref"))
+    for d in (605, 606, 1453):
+        x = torch.as_tensor(rng.standard_normal((40, d)).astype(np.float32),
+                            device=cuda_device)
+        A = torch.as_tensor(rng.standard_normal((d, 27)).astype(np.float32),
+                            device=cuda_device)
+        assert torch.equal(ops.hash_encode(x, A, impl="cuda"),
+                           ops.hash_encode(x, A, impl="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [27, 60, 122, 256])
+@pytest.mark.parametrize("d", [150, 1024, 4608, 8192])
+@pytest.mark.parametrize("n", [37, 17001])
+def test_hash_encode_kernel_equals_plain_at_lm_widths(cuda_device, n, d, L):
+    """Every d_model width class up to 8192 and L up to 256 (W 1 to 8):
+    d = 150 stays on the resident design, wider rows go to the tiled one,
+    a few rows (one row and one bit a thread) and many (8 rows x 2, 4 or 8
+    bits a thread; N ragged against the 128-row block). Codes equal the
+    plain version bit for bit, pad bits zero."""
+    rng = np.random.default_rng(460 + n + d + L)
+    x, A, tail, a_tail = _encode_inputs(rng, n, d, L, cuda_device,
+                                        near_zero=n < 100)
+    plan = ops.hash_encode_plan(n, d, L, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    assert (plan.layout is None) == (d == 150)
+    got = ops.hash_encode(x, A, tail, a_tail, impl="cuda")
+    assert torch.equal(got, ops.hash_encode(x, A, tail, a_tail, impl="ref"))
+    if L % 32:
+        assert not ((got[:, -1].long() & 0xFFFFFFFF) >> (L % 32)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("d", [150, 1024, 8192])
+def test_fused_query_kernel_equals_plain_at_lm_widths(cuda_device, d,
+                                                      quantized):
+    """The fused query at an LM's widths (the query's 512-column slices
+    reloaded over d): small-integer rows give exact f32 dots, so the f32
+    build equals the plain version slot for slot; the int8 build agrees
+    tie-aware."""
+    rng = np.random.default_rng(470 + d)
+    n, q, k = 6000, 8, 10
+    items = rng.integers(-2, 3, (n, d)).astype(np.float32)
+    queries = rng.integers(-2, 3, (q, d)).astype(np.float32)
+    cum, starts = _span_runs(rng, q, ops.FUSED_SPAN + 700, n, False)
+    total = ops.FUSED_SPAN + 700
+    items_t, queries_t = (torch.as_tensor(a, device=cuda_device)
+                          for a in (items, queries))
+    cum_t, starts_t = (torch.as_tensor(a, device=cuda_device)
+                       for a in (cum, starts))
+    kw = {}
+    if quantized:
+        payload, scale = quantize_payload(items_t)
+        kw.update(payload=payload, scale=scale)
+    gv, gp = ops.fused_query(queries_t, cum_t, starts_t, items_t, total, k,
+                             impl="cuda", **kw)
+    wv, wp = ops.fused_query(queries_t, cum_t, starts_t, items_t, total, k,
+                             impl="ref", **kw)
+    if quantized:
+        assert_topk_tie_aware(gp.cpu().numpy(), gv.cpu().numpy(),
+                              wp.cpu().numpy(), wv.cpu().numpy())
+    else:
+        assert torch.equal(gp, wp) and torch.equal(gv, wv)
 
 
 def _gather_runs(rng, q, s, empty, most, device):

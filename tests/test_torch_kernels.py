@@ -515,8 +515,7 @@ def test_fused_query_plan_sizes_spans_and_scratch():
     assert one.group == 1
 
 
-@pytest.mark.parametrize("d,kprime", [(ops.FUSED_MAX_D + 1, 40),
-                                      (150, 20000)])
+@pytest.mark.parametrize("d,kprime", [(8192, 9000), (150, 20000)])
 def test_fused_query_plan_guard_raises_value_error(d, kprime):
     with pytest.raises(ValueError, match="fused_query: d="):
         ops.fused_query_plan(4, 30000, d, kprime)
@@ -974,13 +973,17 @@ def test_hash_encode_plan_fills_the_sms(N, rows, warps, blocks):
     assert plan.blocks * plan.warps >= min(plan.slabs, 132)
 
 
-@pytest.mark.parametrize("L,d_max", [(27, 1452), (32, 1452), (48, 806),
-                                     (64, 806), (96, 557)])
+@pytest.mark.parametrize("L,d_max", [(27, 605), (32, 605), (48, 453),
+                                     (64, 453), (96, 362)])
 def test_hash_encode_plan_raises_past_the_shared_memory_limit(L, d_max):
-    """The largest d whose A (padded to 32 W columns), a_tail and one
-    warp's 8-row slab fit a block's shared memory; one more raises the
-    wrapper's ValueError."""
-    assert ops.hash_encode_plan(64, d_max, L, 132).smem <= ops._SMEM_LIMIT
-    with pytest.raises(ValueError, match="do not fit the kernel's "
-                                         "shared-memory staging"):
-        ops.hash_encode_plan(64, d_max + 1, L, 132)
+    """The largest d whose A (padded to 32 W columns), a_tail and 8 warps'
+    one-row slabs fit a block's shared memory keeps the resident design;
+    one more goes to the tiled design, whose shared memory does not grow
+    with d (so nothing raises, up to an LM's width of 8192)."""
+    res = ops.hash_encode_plan(64, d_max, L, 132)
+    assert res.layout is None and res.smem <= ops._SMEM_LIMIT
+    assert res.smem == ops.hash_encode_smem(d_max, L, 1, 8)
+    for d in (d_max + 1, 8192):
+        tiled = ops.hash_encode_plan(64, d, L, 132)
+        assert tiled.layout is not None
+        assert tiled.smem == ops.hash_tile_smem(tiled.layout) <= 48 * 1024
