@@ -141,6 +141,49 @@ Phases, each fatal on failure:
    vocabulary, ``bucket_gather`` and both fused builds at num_probe = V,
    ``delta_scan`` at the streaming head's buffer.
 
+8. Every other config of ``configs/`` through the LSH vocabulary head, at
+   full width, bf16 weights drawn from a seeded generator on the card
+   (no checkpoint is in the repository), the vocabulary's padding rows
+   zero, each model freed before the next (``MODEL_RUNS``):
+   granite-moe-1b-a400m (24 layers, MoE 32 experts top-8; heads exact,
+   LSH dense, bucket, fused f32 and int8), minicpm3-4b (62 layers, MLA;
+   exact, dense, fused), xlstm-1.3b (48 layers, mLSTM 7 : sLSTM 1,
+   d_ff = 0; exact, dense, fused), internvl2-1b (24 layers, QKV bias;
+   exact, dense, fused), whisper-small (12 + 12 layers; exact, dense,
+   fused f32 and int8) and llama4-scout (8 of its 48 layers: the full
+   stack is ~214 GB of bf16 weights; top-1 routing and the shared
+   expert; exact, dense, fused f32 and int8); every LSH head at
+   num_probe = V. For each model the launch counters and a dispatch
+   tracker are zeroed just before its path and read right after it: the
+   vocab index (code_len 128, 64 ranges), then 8 requests of 64 seeded
+   prompt tokens and 16 greedy tokens through ``BatchedServer`` with
+   each head; internvl2 also prefills 256 seeded patch embeddings before
+   the prompt and decodes 15 steps from the padded cache (positions
+   320+) through the exact and dense heads; whisper, which the reference
+   serves without ``BatchedServer``, runs its serving path: 1,500 seeded
+   frames through ``encoder_forward`` and ``cross_kv``, then 16 decode
+   steps with each head on the hidden state. Then the checks: every
+   kernel of the model's heads launched, each op's ``.cuda`` dispatch
+   count equals its launches and no ``.ref`` dispatch appears; at
+   num_probe = V every LSH head's tokens equal the exact head's; for
+   minicpm3, xlstm and internvl2 (neither MoE, whose decode capacity is
+   per decode group, nor encoder-decoder) a teacher-forced decode over
+   the exact tokens, on f32 copies of the weights, equals a full forward
+   at the same positions within atol and rtol 5e-2
+   (``tests/test_models.py``'s bound; the bf16 run's largest difference
+   is printed: its roundings compound through the random-weight layers);
+   every hidden state seen is finite. Printed: each model's parameter count, prefill,
+   decode-step and head span p50s and tokens/s, and the phase's wall
+   time. Then, the model's layers freed, its kernel rows: ``hash_encode``
+   at its vocabulary build (V x d x 122, the decode step's 8-row encode
+   inside the row), ``hamming_scan`` at 8 x 202,240 (llama4) and both
+   fused builds at 8 x V for whisper's d 768 and llama4's d 5120. Last,
+   jamba-1.5-large at d 8192, blocks only (its ~796 GB of weights fit no
+   1 or 4 cards): one Mamba layer (prefill 64 tokens, 16 decode steps,
+   equal to one forward over all 80 within 5e-2, the conv cache
+   exactly) and one MoE layer (16 experts top-2, d_ff 24,576: a prefill
+   batch and a decode group, finite, aux >= 1).
+
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside it, the script exits
@@ -210,6 +253,37 @@ SERVE_KERNELS = ("hash_encode", "hamming_scan", "bucket_match",
                  "delta_scan")
 SERVE_SPANS = ("repro.serve.prefill", "repro.serve.decode_step",
                "repro.serve.topk_head")
+# phase 8: every other config of configs/ through the LSH vocabulary head,
+# each at full width: (arch, layers run (None: all), heads it is served
+# by, heads whose kernels get rows beyond the vocabulary encode)
+MODEL_RUNS = (
+    ("granite_moe_1b_a400m", None,
+     ("exact", "lsh_dense", "lsh_bucket", "fused", "fused_int8"), ()),
+    ("minicpm3_4b", None, ("exact", "lsh_dense", "fused"), ()),
+    ("xlstm_1_3b", None, ("exact", "lsh_dense", "fused"), ()),
+    ("internvl2_1b", None, ("exact", "lsh_dense", "fused"), ()),
+    ("whisper_small", None, ("exact", "lsh_dense", "fused", "fused_int8"),
+     ("fused", "fused_int8")),
+    # 8 of 48 layers: the full stack is ~214 GB of bf16 weights
+    ("llama4_scout_17b_a16e", 8,
+     ("exact", "lsh_dense", "fused", "fused_int8"),
+     ("lsh_dense", "fused", "fused_int8")),
+)
+FUSED_HEADS = ("fused", "fused_int8")
+MODEL_BATCH = 8           # requests of a generate call
+MODEL_PROMPT = 64         # prompt tokens
+MODEL_STEPS = 16          # greedy tokens a request
+MODEL_MAX_SEQ = 128
+MODEL_TOL = 5e-2          # decode vs full forward (tests/test_models.py)
+JAMBA_ARCH = "jamba_1_5_large_398b"   # blocks only: ~796 GB of weights
+JAMBA_PREFILL, JAMBA_DECODE = 64, 16
+MODEL_KERNELS = {"lsh_dense": ("hash_encode", "hamming_scan"),
+                 "lsh_bucket": ("hash_encode", "bucket_match",
+                                "bucket_gather"),
+                 "fused": ("hash_encode", "bucket_match", "fused_query"),
+                 "fused_int8": ("hash_encode", "bucket_match",
+                                "fused_query_int8"),
+                 "exact": ()}
 # every stage span of each arm (the reference's names)
 ARM_SPANS = {
     "fused": ("repro.engine.query", "repro.engine.hash_encode",
@@ -1715,6 +1789,464 @@ def serve_phase(ds, idx, budgets, arms, ops, dev, card):
     return launches, shapes, cases
 
 
+def model_cfg(arch, layers):
+    """The published config, its depth cut to ``layers`` when given."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def model_params(cfg, seed, dev):
+    """Seeded bf16 weights on the card, the vocabulary's padding rows
+    zero (as a checkpoint's padding would be, so that no head picks one);
+    returns (params, count of parameters)."""
+    import torch
+    from repro_torch.models import lm
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = lm.init_params(gen, cfg, device=dev)
+    params["embed"][cfg.vocab:] = 0
+    if "unembed" in params:
+        params["unembed"][:, cfg.vocab:] = 0
+    torch.cuda.synchronize()
+    return params, sum(t.numel() for t in torch.utils._pytree.tree_leaves(
+        params))
+
+
+def vocab_cases(label, cfg, vidx, unembed, hidden, engines, dev,
+                hamming=False):
+    """The kernel cases a model's heads give at its vocabulary: the
+    index build's encode (V x d x 122, the decode step's 8-row encode
+    inside its row), and where asked the dense head's scan and the fused
+    builds (``engines``: the fused heads' query engines) at num_probe =
+    V."""
+    import torch
+    from repro_torch.core.engine import _probe_runs, encode_queries
+    from repro_torch.kernels import ops
+    from repro_torch.core import hashing
+    V, d = cfg.padded_vocab, cfg.d_model
+    L, W = vidx.hash_bits, vidx.codes.shape[1]
+    B = hidden.shape[0]
+    items = unembed.T.to(torch.float32).contiguous()
+    upper = vidx.upper
+    upper_eff = torch.where(
+        torch.bincount(vidx.range_id.long(), minlength=upper.shape[0]) > 0,
+        upper, upper.max())
+    xv = items / upper_eff[vidx.range_id.long()][:, None]
+    del items
+    tail = torch.sqrt(torch.clamp_min(1.0 - torch.sum(xv * xv, -1), 0.0))
+    A, a_tail = vidx.A[:-1], vidx.A[-1]
+    qn = hashing.normalize(hidden)
+    zeros = torch.zeros((B,), device=dev)
+    path = f"model_{label}"
+    src = "src/repro_torch/kernels/csrc/"
+    cases = {
+        f"hash_encode_vocab_{label}": dict(
+            call=lambda impl: ops.hash_encode(xv, A, tail, a_tail,
+                                              impl=impl),
+            bytes=4 * (V * d + d * L + V + L + V * W),
+            ops=2 * V * d * L + 2 * V * L, op_rate=PEAK_OPS_NO_FMA,
+            device=("hash_encode_tiled",), kernel="hash_encode",
+            path=path, plain_reps=3, source=src + "hash_encode.cu",
+            replaces="src/repro/kernels/hash_encode.py:83"),
+        f"hash_encode_step_{label}": dict(
+            call=lambda impl: ops.hash_encode(qn, A, zeros, a_tail,
+                                              impl=impl),
+            bytes=4 * (B * d + d * L + B + L + B * W),
+            ops=2 * B * d * L + 2 * B * L, op_rate=PEAK_OPS_NO_FMA,
+            device=("hash_encode_tiled",), kernel="hash_encode", path=path,
+            probe_of=f"hash_encode_vocab_{label}",
+            source=src + "hash_encode.cu",
+            replaces="src/repro/kernels/hash_encode.py:83"),
+    }
+    q_codes = encode_queries(vidx, hidden)
+    if hamming:
+        cases[f"hamming_scan_vocab_{label}"] = dict(
+            call=lambda impl: ops.hamming_scan(q_codes, vidx.codes,
+                                               impl=impl),
+            bytes=4 * (B * W + V * W + B * V), ops=2 * B * V * W,
+            ceiling=(B, V), kernel="hamming_scan", path=path,
+            source=src + "hamming.cu",
+            replaces="src/repro/kernels/hamming.py:46")
+    kp = 32
+    for eng in engines.values():
+        order = torch.argsort(eng.buckets.rank[
+            eng.buckets.bucket_rid[None, :].long(),
+            ops.bucket_match(q_codes, eng.buckets.bucket_code, L).long()],
+            dim=-1, stable=True)
+        f_cum, f_starts = _probe_runs(eng.buckets, order, V)
+        f_runs = held_runs(f_cum, V)
+        items_csr, payload, scale = eng._fused_arrays
+        extra = ({} if payload is None
+                 else dict(payload=payload, scale=scale))
+        chunk = max(1, (4 << 30) // (4 * V * d))
+
+        def call(impl, f_cum=f_cum, f_starts=f_starts, items_csr=items_csr,
+                 extra=extra):
+            if impl != "ref":
+                return ops.fused_query(hidden, f_cum, f_starts, items_csr,
+                                       V, 1, impl=impl, **extra)
+            # the plain version a few queries at a time: its (Q, V, d)
+            # block stays within 4 GiB
+            return in_chunks(lambda sl: ops.fused_query(
+                hidden[sl], f_cum[sl], f_starts[sl], items_csr, V, 1,
+                impl="ref", **extra), B, chunk)
+        row_bytes = (V * (4 * d + 4) if payload is None
+                     else V * (d + 4) + B * kp * 4 * d)
+        kernel = "fused_query" if payload is None else "fused_query_int8"
+        cases[f"{kernel}_vocab_{label}"] = dict(
+            call=call, bytes=4 * B * d + 8 * f_runs + row_bytes,
+            ops=2 * (B * V + B * kp) * d, kernel=kernel, path=path,
+            plain_reps=3,
+            check=lambda got, want, items_csr=items_csr, kernel=kernel:
+            check_topk(f"{kernel} ({label})", got[1], got[0], want[1],
+                       want[0], hidden, items_csr),
+            source=src + "fused_query.cu",
+            replaces="src/repro/kernels/fused_query.py:156", cold=True)
+    return cases
+
+
+def teacher_forced(params, cfg, reqs, toks):
+    """prefill -> extend_cache -> decode steps fed ``toks``, and one full
+    forward over the prompt and the same tokens. Returns (prefill's last
+    hidden, the decode steps' hiddens (B, T, d), the full forward's
+    hiddens at the same positions (B, T + 1, d), from the prompt's last)."""
+    import torch
+    from repro_torch.models import lm
+    h0, caches = lm.prefill(params, reqs, cfg)
+    caches = lm.extend_cache(cfg, caches, MODEL_MAX_SEQ)
+    hs = []
+    for t in range(toks.shape[1]):
+        h, caches = lm.decode_step(params, toks[:, t], caches,
+                                   reqs.shape[1] + t, cfg,
+                                   logits_mode="none")
+        hs.append(h)
+    del caches
+    seq = torch.cat([reqs, toks], dim=1)
+    full, _, _ = lm.backbone_forward(
+        params, lm._embed(params, seq, cfg),
+        torch.arange(seq.shape[1], device=seq.device), cfg)
+    return h0, torch.stack(hs, 1), full[:, reqs.shape[1] - 1:]
+
+
+def serve_one_model(arch, layers, heads, rows, seed, ops, dev, card):
+    """One config of phase 8 at full width: its weights, vocab index and
+    servers, then the path (every head's ``generate``; internvl2's patch
+    prefill and decode; whisper's encoder, cross K/V and decode loop)
+    between zeroed and copied launch counters, then the checks. Returns
+    the path's launches and shapes and its kernel cases."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, lm, lm_head
+    from repro_torch.obs import RingBufferSink, Tracker
+
+    t_model = time.perf_counter()
+    cfg = model_cfg(arch, layers)
+    params, n_params = model_params(cfg, seed, dev)
+    unembed = lm._unembed_matrix(params, cfg)
+    V = cfg.padded_vocab
+    label = arch.split("_")[0]
+    depth = (f"{cfg.n_layers} of {model_cfg(arch, None).n_layers} layers"
+             if layers else f"{cfg.n_layers} layers")
+    print(f"model: {cfg.name} d={cfg.d_model} {depth} vocab={cfg.vocab} "
+          f"(padded {V}), {n_params} bf16/f32 params, drawn in "
+          f"{time.perf_counter() - t_model:.2f} s; heads {', '.join(heads)}")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    reqs = torch.randint(0, cfg.vocab, (MODEL_BATCH, MODEL_PROMPT),
+                         generator=g, device=dev)
+    hidden_seen = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    dispatch = Tracker([RingBufferSink(capacity=1 << 10)])
+    ops.set_dispatch_tracker(dispatch)
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        vidx = lm_head.build_vocab_index(unembed, g)
+        torch.cuda.synchronize()
+        t_vocab = time.perf_counter() - t0
+        kws = {"exact": dict(),
+               "lsh_dense": dict(lsh_decode=True, vocab_index=vidx,
+                                 num_probe=V),
+               "lsh_bucket": dict(lsh_decode=True, vocab_index=vidx,
+                                  num_probe=V, engine="bucket"),
+               "fused": dict(lsh_decode=True, vocab_index=vidx, num_probe=V,
+                             engine="fused"),
+               "fused_int8": dict(lsh_decode=True, vocab_index=vidx,
+                                  num_probe=V, engine="fused",
+                                  quantized=True)}
+        servers = {}
+        for name in heads:
+            tr = Tracker([RingBufferSink(capacity=1 << 12)])
+            servers[name] = serve.BatchedServer(
+                cfg, params, max_seq=MODEL_MAX_SEQ, batch=MODEL_BATCH,
+                tracker=tr, device=dev, **kws[name])
+            results[name] = dict(tracker=tr)
+        if cfg.is_encoder_decoder:
+            # the reference's serving path for whisper: encoder, cross
+            # K/V, decode steps, the head on the hidden state
+            frames = 0.1 * torch.randn(
+                (MODEL_BATCH, cfg.encoder_frames, cfg.d_model),
+                generator=g, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = encdec.encoder_forward(params["encoder"], frames, cfg)
+            caches = encdec.init_cache(cfg, MODEL_BATCH, MODEL_MAX_SEQ,
+                                       device=dev)
+            caches["cross_k"], caches["cross_v"] = encdec.cross_kv(
+                params["layers"], enc, cfg)
+            torch.cuda.synchronize()
+            t_enc = time.perf_counter() - t0
+            hidden_seen.append(enc)
+            tok = reqs[:, 0]
+            toks = {n: [] for n in heads}
+            step_ms = []
+            t_loop = time.perf_counter()
+            for t in range(MODEL_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h, caches = lm.decode_step(params, tok, caches, t, cfg,
+                                           logits_mode="none")
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                hidden_seen.append(h)
+                for n in heads:
+                    toks[n].append(servers[n]._head_token(h, unembed))
+                tok = toks["exact"][-1]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_loop
+            for n in heads:
+                results[n].update(tokens=torch.stack(toks[n], 1), wall=wall)
+            last_hidden = h.to(torch.float32)
+            del caches, enc, frames
+        else:
+            for name in heads:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = servers[name].generate(reqs, MODEL_STEPS)
+                torch.cuda.synchronize()
+                results[name].update(tokens=out,
+                                     wall=time.perf_counter() - t0)
+            if cfg.num_patches:
+                # patch embeddings prepended, then decode from the padded
+                # cache at positions 320+ through the exact and dense heads
+                patches = torch.randn((MODEL_BATCH, cfg.num_patches,
+                                       cfg.d_model), generator=g,
+                                      device=dev)
+                h, caches = lm.prefill(params, reqs, cfg, patches)
+                caches = lm.extend_cache(
+                    cfg, caches, cfg.num_patches + MODEL_PROMPT
+                    + MODEL_STEPS)
+                hidden_seen.append(h)
+                p_toks = {n: [servers[n]._head_token(h, unembed)]
+                          for n in ("exact", "lsh_dense")}
+                for t in range(MODEL_STEPS - 1):
+                    h, caches = lm.decode_step(
+                        params, p_toks["exact"][-1], caches,
+                        cfg.num_patches + MODEL_PROMPT + t, cfg,
+                        logits_mode="none")
+                    hidden_seen.append(h)
+                    for n in p_toks:
+                        p_toks[n].append(servers[n]._head_token(h, unembed))
+                del caches, patches
+        torch.cuda.synchronize()
+    finally:
+        ops.set_dispatch_tracker(None)
+    launches = dict(ops.launch_counts)
+    shapes = dict(ops.launch_shapes)
+    want = sorted({k for n in heads for k in MODEL_KERNELS[n]})
+    print(f"launches on the phase-8 {label} path: "
+          f"{ {k: launches[k] for k in want} }")
+    idle = [op for op in want if launches[op] == 0]
+    if idle:
+        fail(f"model {label}: kernels never launched on its path: {idle}")
+    counted = {op: int(dispatch.counters.get(
+        f"repro.kernels.dispatch.{op}.cuda", 0)) for op in ops.OPS}
+    launched = {op: launches[op] for op in ops.OPS}
+    launched["fused_query"] += launches["fused_query_int8"]
+    refs = sorted(k for k in dispatch.counters if k.endswith(".ref"))
+    if counted != launched or refs:
+        fail(f"model {label}: dispatch counts {counted} != launches "
+             f"{launched} (ref dispatches {refs})")
+
+    # -- the model's checks ------------------------------------------------
+    exact = results["exact"]["tokens"]
+    for name, rec in results.items():
+        toks = rec["tokens"]
+        if toks.shape != (MODEL_BATCH, MODEL_STEPS) or bool(
+                (toks < 0).any() | (toks >= cfg.vocab).any()):
+            fail(f"model {label}: {name} tokens out of shape or range")
+        if name != "exact" and not torch.equal(toks, exact):
+            fail(f"model {label}: {name} at num_probe = V differs from the "
+                 f"exact head in {int((toks != exact).sum())} tokens")
+        tr = rec["tracker"]
+        p50 = {n.split(".")[-1]: 1e3 * tr.hists[n].quantile(0.5)
+               for n in SERVE_SPANS if n in tr.hists}
+        if cfg.is_encoder_decoder:
+            p50.update(prefill=1e3 * t_enc,
+                       decode_step=statistics.median(step_ms))
+        tok_s = MODEL_BATCH * MODEL_STEPS / rec["wall"]
+        print(f"model: {label} {name:10s} prefill {p50['prefill']:.3f} ms, "
+              f"decode_step p50 {p50['decode_step']:.3f} ms, topk_head p50 "
+              f"{p50['topk_head']:.3f} ms, {tok_s:.1f} tokens/s "
+              f"({MODEL_BATCH} x {MODEL_STEPS} in {rec['wall']:.3f} s) "
+              f"[{card}]")
+    if cfg.num_patches:
+        if not torch.equal(torch.stack(p_toks["lsh_dense"], 1),
+                           torch.stack(p_toks["exact"], 1)):
+            fail(f"model {label}: the dense head after the patch prefill "
+                 f"differs from the exact head")
+        print(f"model: {label} prefill with {cfg.num_patches} patches, "
+              f"{MODEL_STEPS - 1} steps from position "
+              f"{cfg.num_patches + MODEL_PROMPT}: dense head at V == exact")
+    if not cfg.is_encoder_decoder:
+        # decode continues prefill: teacher-forced on the exact tokens
+        h0, h_dec, h_full = teacher_forced(params, cfg, reqs,
+                                           exact[:, :MODEL_STEPS - 1])
+        hidden_seen += [h0, h_dec, h_full]
+        last_hidden = h0.to(torch.float32)
+        if cfg.moe is None:
+            # in bf16 the roundings of the decode's and the forward's
+            # products (other shapes, other cuBLAS kernels) compound
+            # through 24-62 random-weight layers: measured, no limit. The
+            # check runs on f32 copies of the same weights
+            bf16_err = float((h_dec.float() - h_full[:, 1:].float())
+                             .abs().max())
+            p32 = torch.utils._pytree.tree_map(lambda t: t.float(), params)
+            f0, f_dec, f_full = teacher_forced(p32, cfg, reqs,
+                                               exact[:, :MODEL_STEPS - 1])
+            del p32
+            err = float((f_dec - f_full[:, 1:]).abs().max())
+            ok = torch.allclose(f_dec, f_full[:, 1:], atol=MODEL_TOL,
+                                rtol=MODEL_TOL) and \
+                torch.allclose(f0, f_full[:, 0], atol=MODEL_TOL,
+                               rtol=MODEL_TOL)
+            if not ok:
+                fail(f"model {label}: f32 decode hidden states differ from "
+                     f"a full forward (max |diff| {err})")
+            print(f"model: {label} decode == full forward at positions "
+                  f"{MODEL_PROMPT - 1}..{MODEL_PROMPT + MODEL_STEPS - 2} "
+                  f"within {MODEL_TOL} on f32 weights (max |diff| "
+                  f"{err:.2e}); bf16 max |diff| {bf16_err:.4f} (no limit)")
+    if not all(bool(torch.isfinite(h).all()) for h in hidden_seen):
+        fail(f"model {label}: a hidden state is not finite")
+    print(f"model: {label} vocab index {t_vocab:.3f} s; path and checks "
+          f"{time.perf_counter() - t_model:.1f} s")
+
+    # -- the kernels' inputs at the shapes the path gave them -------------
+    # (the model's layers are freed first: only the vocabulary stays)
+    engines = {n: servers[n]._fused_eng for n in rows if n in FUSED_HEADS}
+    del params, servers, hidden_seen
+    cases = vocab_cases(label, cfg, vidx, unembed, last_hidden, engines,
+                        dev, hamming="lsh_dense" in rows)
+    return launches, shapes, cases
+
+
+def jamba_blocks(seed, dev, card):
+    """Jamba at full width, blocks only (the model's ~796 GB of bf16
+    weights fit no 1 or 4 cards): one Mamba layer (prefill 64 tokens, 16
+    decode steps, held against one forward over all 80) and one MoE layer
+    (a prefill batch and a decode group: finite, aux >= 1)."""
+    import torch
+    from repro_torch.models import moe, ssm
+    cfg = model_cfg(JAMBA_ARCH, None)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t_phase = time.perf_counter()
+    p = ssm.ssm_init(g, cfg)
+    n = sum(t.numel() for t in p.values())
+    S = JAMBA_PREFILL + JAMBA_DECODE
+    x = torch.randn((MODEL_BATCH, S, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, cache = ssm.ssm_forward(p, x[:, :JAMBA_PREFILL], cfg)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    outs, step_ms = [], []
+    for t in range(JAMBA_PREFILL, S):
+        t0 = time.perf_counter()
+        o, cache = ssm.ssm_decode(p, x[:, t], cache, cfg)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(o)
+    full, fcache = ssm.ssm_forward(p, x, cfg)
+    dec = torch.stack(outs, 1)
+    if not (torch.isfinite(dec).all() and torch.isfinite(out_p).all()
+            and torch.isfinite(cache.h).all()):
+        fail("jamba: a Mamba output or state is not finite")
+    err = float((dec.float() - full[:, JAMBA_PREFILL:].float()).abs().max())
+    herr = float((cache.h - fcache.h).abs().max())
+    if not (torch.allclose(dec.float(), full[:, JAMBA_PREFILL:].float(),
+                           atol=MODEL_TOL, rtol=MODEL_TOL)
+            and torch.allclose(out_p.float(), full[:, :JAMBA_PREFILL]
+                               .float(), atol=MODEL_TOL, rtol=MODEL_TOL)
+            and torch.allclose(cache.h, fcache.h, atol=MODEL_TOL,
+                               rtol=MODEL_TOL)
+            and torch.equal(cache.conv, fcache.conv)):
+        fail(f"jamba: Mamba prefill + decode != one forward over {S} "
+             f"tokens (outputs {err}, state {herr})")
+    print(f"model: jamba Mamba layer d={cfg.d_model} d_inner="
+          f"{ssm._dims(cfg)[0]} N={cfg.ssm.d_state}, {n} params: prefill "
+          f"{JAMBA_PREFILL} tokens {1e3 * t_pre:.3f} ms, decode step p50 "
+          f"{statistics.median(step_ms):.3f} ms, == one forward over {S} "
+          f"(max |diff| outputs {err:.4f}, state {herr:.2e}) [{card}]")
+    del p, x, cache, fcache, full, dec, outs
+    torch.cuda.empty_cache()
+    p = moe.moe_init(g, cfg)
+    n = sum(t.numel() for t in p.values())
+    x = torch.randn((MODEL_BATCH, JAMBA_PREFILL, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, aux = moe.moe_forward(p, x, cfg)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_d, aux_d = moe.moe_forward(p, x[None, :, -1], cfg)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    for what, o, a in (("prefill", out, aux), ("decode group", out_d,
+                                               aux_d)):
+        if not (bool(torch.isfinite(o).all()) and float(a) >= 1.0):
+            fail(f"jamba: MoE {what} not finite or aux {float(a)} < 1")
+    print(f"model: jamba MoE layer {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.top_k} d_ff {cfg.moe.d_ff}, {n} params: prefill "
+          f"{MODEL_BATCH} x {JAMBA_PREFILL} {1e3 * t_pre:.3f} ms (aux "
+          f"{float(aux):.4f}), decode group of {MODEL_BATCH} "
+          f"{1e3 * t_dec:.3f} ms (aux {float(aux_d):.4f}); blocks "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+def model_phase(ops, dev, card, compare, paths):
+    """Phase 8: every config of ``MODEL_RUNS`` through its heads, each
+    model's path between zeroed and copied launch counters, then its
+    checks and its kernel rows (``compare``), the model freed before the
+    next; then jamba's blocks."""
+    import gc
+
+    import torch
+    t_phase = time.perf_counter()
+    seen = set()
+    for j, (arch, layers, heads, rows) in enumerate(MODEL_RUNS):
+        launches, shapes, cases = serve_one_model(
+            arch, layers, heads, rows, SEED + 80 + 10 * j, ops, dev, card)
+        label = arch.split("_")[0]
+        paths[f"model_{label}"] = (launches, shapes)
+        seen |= {k for k, v in launches.items() if v}
+        compare(cases)
+        del cases
+        gc.collect()
+        torch.cuda.empty_cache()
+    idle = [op for op in ("hash_encode", "hamming_scan", "bucket_match",
+                          "bucket_gather", "fused_query", "fused_query_int8")
+            if op not in seen]
+    if idle:
+        fail(f"kernels never launched on the phase-8 paths: {idle}")
+    jamba_blocks(SEED + 150, dev, card)
+    torch.cuda.empty_cache()
+    print(f"model: phase 8 {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2117,6 +2649,11 @@ def main() -> int:
     t_rows = time.perf_counter()
     compare(serve_cases)
     print(f"serve: phase 7 kernel rows {time.perf_counter() - t_rows:.1f} s")
+    del serve_cases
+    torch.cuda.empty_cache()
+
+    # -- 8. every other config through the LSH vocabulary head ----------------
+    model_phase(ops, dev, smi, compare, paths)
     for row in rows:
         row["launches_by_path"] = {p_: runs_[row["kernel"]]
                                    for p_, (runs_, _) in paths.items()}

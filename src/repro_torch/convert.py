@@ -201,8 +201,11 @@ def lm_params_from_tree(tree: Mapping, *, device=None):
     """The port's LM params (``repro_torch.models.lm``) from the
     reference's param tree with numpy leaves (``jax.tree.map(np.asarray,
     params)``), on ``device`` (the card unless ``device="cpu"``). The
-    layout is the same (layers stacked per pattern position); bf16 leaves
-    keep their bits."""
+    layout is the same for every family (layers stacked per pattern
+    position; MoE experts, MLA projections, the SSM's and xLSTM's f32
+    leaves, an MLP-free block's empty ``ffn``, the encoder-decoder's nested
+    ``encoder`` and ``layers`` stacks); bf16 and f32 leaves keep their
+    bits."""
     device = resolve_device(device)
 
     def conv(node):

@@ -1,5 +1,5 @@
-"""Attention: GQA with qk_norm, bias, softcap and local windows (port of
-``repro/models/attention.py``, its GQA part).
+"""Attention: GQA with qk_norm, bias, softcap and local windows, and MLA
+(port of ``repro/models/attention.py``).
 
 Two execution modes, plain PyTorch (the reference computes attention
 outside any Pallas kernel):
@@ -12,7 +12,13 @@ outside any Pallas kernel):
 * ``decode_attention`` — one new token against a (B, S_max, KV, hd) cache.
 
 Layouts are the reference's: q (B, S, H, hd), k and v (B, S, KV, hd).
-MLA and the sequence-sharded decode combine come with a later slice.
+
+MLA (MiniCPM3/DeepSeek-style latent attention) caches the compressed
+``c_kv`` and the shared ``k_rope`` only; decode uses the absorbed form
+(scores via ``q W_uk^T c_kv``), so the full K/V are never formed at
+decode time. The reference's sequence-sharded decode combine
+(``decode_attention_seq_sharded``, a combine across a mesh axis) waits
+for the port's parallel slice.
 """
 
 from __future__ import annotations
@@ -35,14 +41,29 @@ NEG_INF = -1e30
 
 def attn_init(generator: torch.Generator, cfg: ModelConfig,
               stack: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
-    """One GQA layer's params (``stack`` leading axes: layers stacked per
-    pattern position, as the reference's vmapped init)."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            "MLA attention comes with a later slice of the port "
-            "(ROADMAP.md §1)")
+    """One attention layer's params, GQA or MLA per ``cfg`` (``stack``
+    leading axes: layers stacked per pattern position, as the reference's
+    vmapped init)."""
     hd = cfg.resolved_head_dim
     dev = generator.device
+    if cfg.mla is not None:
+        m = cfg.mla
+        H = cfg.n_heads
+        return {
+            "w_dq": dense_init(generator, stack + (cfg.d_model, m.q_rank)),
+            "q_norm": torch.zeros(stack + (m.q_rank,), dtype=torch.float32,
+                                  device=dev),
+            "w_uq": dense_init(generator, stack + (
+                m.q_rank, H * (m.nope_dim + m.rope_dim))),
+            "w_dkv": dense_init(generator, stack + (cfg.d_model, m.kv_rank)),
+            "kv_norm": torch.zeros(stack + (m.kv_rank,), dtype=torch.float32,
+                                   device=dev),
+            "w_kr": dense_init(generator, stack + (cfg.d_model, m.rope_dim)),
+            "w_uk": dense_init(generator, stack + (m.kv_rank,
+                                                   H * m.nope_dim)),
+            "w_uv": dense_init(generator, stack + (m.kv_rank, H * m.v_dim)),
+            "w_o": dense_init(generator, stack + (H * m.v_dim, cfg.d_model)),
+        }
     p = {
         "w_q": dense_init(generator, stack + (cfg.d_model, cfg.n_heads * hd)),
         "w_k": dense_init(generator, stack + (cfg.d_model, cfg.n_kv * hd)),
@@ -216,8 +237,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 class AttnCache(NamedTuple):
-    k: torch.Tensor          # (B, S, KV, hd)
-    v: torch.Tensor          # (B, S, KV, hd)
+    k: torch.Tensor          # (B, S, KV, hd)  [MLA: (B, S, kv_rank) c_kv]
+    v: torch.Tensor          # (B, S, KV, hd)  [MLA: (B, S, rope_dim) k_rope]
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
@@ -238,18 +259,30 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
 
 def gqa_forward(p, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, *, layer_is_local: bool,
-                causal: bool = True) -> Tuple[torch.Tensor, AttnCache]:
-    """Full-sequence self-attention (prefill). x: (B, S, d).
+                causal: bool = True, use_rope: bool = True,
+                kv_override: Optional[Tuple[torch.Tensor,
+                                            torch.Tensor]] = None,
+                kv_positions: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, AttnCache]:
+    """Full-sequence attention (prefill). x: (B, S, d).
 
     Returns (output (B, S, d), cache of the projected K/V for decode reuse).
-    The reference's cross-attention and rope-free arms (``kv_override``,
-    ``use_rope``) serve the audio encoder-decoder, a later slice.
+    ``kv_override`` supplies external K/V at ``kv_positions`` (whisper's
+    cross-attention: the query is roped, the encoder's keys are not);
+    ``use_rope=False`` is the audio encoder's rope-free self-attention.
     """
     q, k, v = _project_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        if kv_override is None:
+            k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_override is not None:
+        k, v = kv_override
+        k_pos = kv_positions
+    else:
+        k_pos = positions
     window = cfg.local_window if layer_is_local else None
-    o = flash_attention(q, k, v, positions, positions, causal=causal,
+    o = flash_attention(q, k, v, positions, k_pos, causal=causal,
                         window=window, logit_cap=cfg.attn_softcap)
     out = o.reshape(o.shape[:2] + (-1,)) @ p["w_o"]
     return out, AttnCache(k, v)
@@ -273,4 +306,82 @@ def gqa_decode(p, x: torch.Tensor, cache: AttnCache, cache_pos,
     o = decode_attention(q, cache.k, cache.v, cache_pos, window=window,
                          logit_cap=cfg.attn_softcap)
     out = o.reshape(o.shape[0], -1) @ p["w_o"]
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, AttnCache]:
+    """Prefill MLA: K and V expanded from the latent, v padded to the qk
+    width for the shared flash core (then sliced), at scale
+    ``(nope + rope)^-0.5``. Returns (out, AttnCache(c_kv, k_rope))."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(B, S, H, m.nope_dim + m.rope_dim)
+    q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    k_rope = x @ p["w_kr"]                                # shared head
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, m.nope_dim)
+    v = (c_kv @ p["w_uv"]).reshape(B, S, H, m.v_dim)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.rope_dim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    qk_dim = m.nope_dim + m.rope_dim
+    v_pad = torch.nn.functional.pad(v, (0, qk_dim - m.v_dim))
+    o = flash_attention(q_full, k_full, v_pad, positions, positions,
+                        causal=True, scale=qk_dim ** -0.5)
+    o = o[..., :m.v_dim]
+    out = o.reshape(B, S, H * m.v_dim) @ p["w_o"]
+    return out, AttnCache(c_kv, k_rope)
+
+
+def mla_decode(p, x: torch.Tensor, cache: AttnCache, cache_pos,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, AttnCache]:
+    """Absorbed-form MLA decode: never forms per-head K/V. Scores are
+    ``q_nope W_uk^T c_kv + q_rope k_rope`` in f32.
+
+    cache.k = c_kv (B, S, kv_rank); cache.v = k_rope (B, S, rope_dim). The
+    new latent and rope key are written into ``cache`` in place, as
+    :func:`gqa_decode` writes; the returned cache is the same tensors.
+    """
+    m = cfg.mla
+    B, _ = x.shape
+    H = cfg.n_heads
+    f32 = torch.float32
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(B, H, m.nope_dim + m.rope_dim)
+    q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    pos = torch.as_tensor(cache_pos, device=x.device).reshape(1)
+    q_rope = apply_rope(q_rope[:, None], pos, cfg.rope_theta)[:, 0]
+
+    c_new = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    kr_new = x @ p["w_kr"]
+    kr_new = apply_rope(kr_new[:, None, None], pos, cfg.rope_theta)[:, 0, 0]
+    cache.k[:, cache_pos] = c_new.to(cache.k.dtype)
+    cache.v[:, cache_pos] = kr_new.to(cache.v.dtype)
+    c_kv, k_rope = cache.k, cache.v
+
+    w_uk = p["w_uk"].reshape(m.kv_rank, H, m.nope_dim)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope.to(f32), w_uk.to(f32))
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv.to(f32))
+         + torch.einsum("bhn,bsn->bhs", q_rope.to(f32), k_rope.to(f32)))
+    s = s * (m.nope_dim + m.rope_dim) ** -0.5
+    keep = torch.arange(c_kv.shape[1], device=x.device) <= cache_pos
+    s = torch.where(keep, s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", pattn, c_kv.to(f32))
+    w_uv = p["w_uv"].reshape(m.kv_rank, H, m.v_dim)
+    o = torch.einsum("bhr,rhv->bhv", o_lat, w_uv.to(f32))
+    out = o.to(x.dtype).reshape(B, H * m.v_dim) @ p["w_o"]
     return out, cache

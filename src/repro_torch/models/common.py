@@ -8,12 +8,32 @@ their tensors on the generator's device.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 PARAM_DTYPE = torch.bfloat16
 COMPUTE_DTYPE = torch.bfloat16
+
+
+# f32 elements drawn at once: a larger parameter is filled in slices, so
+# that its f32 draw never holds more than 1 GiB beside the bf16 result (an
+# expert stack of llama4 or jamba is 2.7-13 GB in f32)
+INIT_CHUNK = 1 << 28
+
+
+def _draw(shape: Tuple[int, ...], dtype, generator: torch.Generator,
+          fill) -> torch.Tensor:
+    """A ``dtype`` tensor of ``shape`` whose values ``fill`` draws in f32
+    (``fill(x)`` returns the values for the f32 tensor ``x``), in slices
+    of at most ``INIT_CHUNK`` elements."""
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    flat = out.view(-1)
+    for s in range(0, flat.numel(), INIT_CHUNK):
+        x = torch.empty(min(INIT_CHUNK, flat.numel() - s),
+                        dtype=torch.float32, device=generator.device)
+        flat[s:s + x.numel()] = fill(x)
+    return out
 
 
 def dense_init(generator: torch.Generator, shape: Tuple[int, ...],
@@ -23,18 +43,25 @@ def dense_init(generator: torch.Generator, shape: Tuple[int, ...],
     stack axes (the fan-in is ``shape[-2]``)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
-    x = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (std * x).to(dtype)
+    return _draw(shape, dtype, generator, lambda x: std * torch.nn.init.
+                 trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator))
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int,
                dtype=PARAM_DTYPE) -> torch.Tensor:
     # std d^-0.5 keeps tied unembedding logits O(1) (gemma-style input
     # scaling by sqrt(d) restores residual-stream magnitude where used).
-    x = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (d ** -0.5 * x).to(dtype)
+    return _draw((vocab, d), dtype, generator,
+                 lambda x: d ** -0.5 * x.normal_(generator=generator))
+
+
+def unstack(tree, n: int) -> List:
+    """The ``n`` per-layer views of a tree (nested dicts of tensors)
+    stacked on its leading axis."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5

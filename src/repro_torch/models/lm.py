@@ -1,19 +1,21 @@
-"""Decoder-only LM assembled from a ModelConfig (port of
-``repro/models/lm.py`` for attention-only layer patterns: the dense
-family, Qwen3, Qwen2 and Gemma-2).
+"""Generic LM assembled from a ModelConfig (port of
+``repro/models/lm.py``): every config of ``configs/``.
 
-Layer heterogeneity (Gemma-2's local/global alternation) is handled as in
-the reference, with a *period-pattern stack*: the layer pattern repeats
-with period P, and the params and caches of position ``i`` in the period
-are stacked over the ``n_layers / P`` repetitions (leading axis), so the
-reference's weights carry across one to one. The forward pass loops over
-the repetitions (the reference's ``lax.scan``) and applies positions
-0..P-1 in each.
+Layer heterogeneity (jamba's 1:7 attn:mamba interleave, gemma2's
+local/global alternation, xLSTM's 7:1 mLSTM:sLSTM, MoE-every-k) is handled
+as in the reference, with a *period-pattern stack*: the layer pattern
+repeats with period P, and the params and caches of position ``i`` in the
+period are stacked over the ``n_layers / P`` repetitions (leading axis),
+so the reference's weights carry across one to one. The forward pass
+loops over the repetitions (the reference's ``lax.scan``) and applies
+positions 0..P-1 in each. The encoder-decoder (whisper) dispatches to
+:mod:`repro_torch.models.encdec`.
 
-A config whose layers need MoE, Mamba, xLSTM, MLA, patch embeddings or an
-encoder raises ``NotImplementedError``: those blocks come with a later
-slice of the port. Training (``train_loss``/``chunked_loss``) comes with
-the training slice.
+Decode writes every cache in place: attention caches through their
+per-layer views, recurrent states (Mamba, mLSTM, sLSTM) by copying each
+step's new state into the stacked tensors; ``decode_step`` returns the
+caches it was given. Training (``train_loss``/``chunked_loss``) comes
+with the training slice.
 """
 
 from __future__ import annotations
@@ -26,10 +28,18 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import encdec
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (PARAM_DTYPE, dense_init, embed_init,
-                                       rms_norm, softcap, swiglu)
+                                       rms_norm, softcap, swiglu, unstack)
 
 PyTree = Any
+
+#: decode-MoE token groups, the reference's measured optimum: one group
+#: (the whole decode batch)
+MOE_DECODE_GROUPS = 1
 
 
 # ---------------------------------------------------------------------------
@@ -61,85 +71,127 @@ def position_is_local(cfg: ModelConfig, i: int) -> bool:
     return cfg.local_global_alternate and (i % 2 == 0)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """``NotImplementedError`` for a config this slice cannot run: every
-    layer must be attention (GQA, no MLA) with a dense SwiGLU MLP, and the
-    model decoder-only without patch embeddings."""
-    later = []
-    if cfg.is_encoder_decoder:
-        later.append("the encoder-decoder stack")
-    if cfg.family == "audio":
-        later.append("the audio MLP")
-    if cfg.moe is not None:
-        later.append("MoE layers")
-    if cfg.mla is not None:
-        later.append("MLA attention")
-    kinds = sorted(set(cfg.layer_pattern) - {"attn"})
-    if kinds:
-        later.append(f"{'/'.join(kinds)} layers")
-    if cfg.num_patches:
-        later.append("patch embeddings")
-    if cfg.d_ff == 0:
-        later.append("MLP-free blocks")
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} come with a later slice of the "
-            f"port (ROADMAP.md §1); this slice runs attention-only dense "
-            f"models")
-
-
 # ---------------------------------------------------------------------------
 # per-layer init / apply
 # ---------------------------------------------------------------------------
+
+
+def _mixer_init(generator: torch.Generator, cfg: ModelConfig, kind: str,
+                stack: Tuple[int, ...]):
+    if kind == "attn":
+        return attn.attn_init(generator, cfg, stack)
+    if kind == "mamba":
+        return ssm_mod.ssm_init(generator, cfg, stack)
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_init(generator, cfg, stack)
+    if kind == "slstm":
+        return xlstm_mod.slstm_init(generator, cfg, stack)
+    raise ValueError(kind)
+
+
+def _ffn_init(generator: torch.Generator, cfg: ModelConfig, is_moe: bool,
+              stack: Tuple[int, ...]):
+    if cfg.d_ff == 0:
+        return {}
+    if is_moe:
+        return moe_mod.moe_init(generator, cfg, stack)
+    d = cfg.d_model
+    if cfg.family == "audio":    # whisper: plain GELU MLP
+        return encdec._mlp_init(generator, cfg, stack)
+    return {"w_gate": dense_init(generator, stack + (d, cfg.d_ff)),
+            "w_up": dense_init(generator, stack + (d, cfg.d_ff)),
+            "w_down": dense_init(generator, stack + (cfg.d_ff, d))}
 
 
 def layer_init(generator: torch.Generator, cfg: ModelConfig, i: int,
                stack: Tuple[int, ...] = ()) -> Dict:
     """The params of pattern position ``i`` (``stack`` leading axes: the
     repetitions, as the reference's vmapped init stacks them)."""
-    check_supported(cfg)
     dev = generator.device
     d = cfg.d_model
     return {
         "norm1": torch.zeros(stack + (d,), dtype=torch.float32, device=dev),
-        "mixer": attn.attn_init(generator, cfg, stack),
+        "mixer": _mixer_init(generator, cfg, position_kind(cfg, i), stack),
         "norm2": torch.zeros(stack + (d,), dtype=torch.float32, device=dev),
-        "ffn": {"w_gate": dense_init(generator, stack + (d, cfg.d_ff)),
-                "w_up": dense_init(generator, stack + (d, cfg.d_ff)),
-                "w_down": dense_init(generator, stack + (cfg.d_ff, d))},
+        "ffn": _ffn_init(generator, cfg, cfg.is_moe_layer(i), stack),
     }
 
 
-def _apply_ffn(p, x: torch.Tensor, cfg: ModelConfig
+def _apply_ffn(p, x: torch.Tensor, cfg: ModelConfig, is_moe: bool
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense SwiGLU MLP; (out, aux loss 0) as the reference's dense arm."""
-    return (swiglu(x, p["w_gate"], p["w_up"], p["w_down"]),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    """(out, aux loss): zero for an MLP-free block (``d_ff == 0``), the
+    MoE layer's, the audio GELU MLP's or the SwiGLU MLP's (aux 0)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.d_ff == 0:
+        return torch.zeros_like(x), zero
+    if is_moe:
+        return moe_mod.moe_forward(p, x, cfg)
+    if cfg.family == "audio":
+        return encdec._mlp(p, x), zero
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), zero
 
 
 def layer_forward(p, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig, i: int, *, causal: bool = True):
     """Full-sequence block at pattern position i. Returns (x', cache, aux)."""
+    kind = position_kind(cfg, i)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    out, cache = attn.gqa_forward(
-        p["mixer"], h, positions, cfg,
-        layer_is_local=position_is_local(cfg, i), causal=causal)
+    if kind == "attn":
+        if cfg.mla is not None:
+            out, cache = attn.mla_forward(p["mixer"], h, positions, cfg)
+        else:
+            out, cache = attn.gqa_forward(
+                p["mixer"], h, positions, cfg,
+                layer_is_local=position_is_local(cfg, i), causal=causal,
+                use_rope=cfg.family != "audio")
+    elif kind == "mamba":
+        out, cache = ssm_mod.ssm_forward(p["mixer"], h, cfg)
+    elif kind == "mlstm":
+        out, cache = xlstm_mod.mlstm_forward(p["mixer"], h, cfg)
+    elif kind == "slstm":
+        out, cache = xlstm_mod.slstm_forward(p["mixer"], h, cfg)
+    else:
+        raise ValueError(kind)
     x = x + out
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    out, aux = _apply_ffn(p["ffn"], h, cfg)
+    out, aux = _apply_ffn(p["ffn"], h, cfg, cfg.is_moe_layer(i))
     return x + out, cache, aux
 
 
-def layer_decode(p, x: torch.Tensor, cache: attn.AttnCache, cache_pos,
-                 cfg: ModelConfig, i: int):
-    """One-token block step. x: (B, d). Returns (x', cache', aux); the
-    cache is written in place."""
+def layer_decode(p, x: torch.Tensor, cache, cache_pos, cfg: ModelConfig,
+                 i: int):
+    """One-token block step. x: (B, d). Returns (x', cache', aux): an
+    attention cache is written in place and returned; a recurrent mixer
+    returns new state tensors."""
+    kind = position_kind(cfg, i)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    out, cache = attn.gqa_decode(p["mixer"], h, cache, cache_pos, cfg,
-                                 layer_is_local=position_is_local(cfg, i))
+    if kind == "attn":
+        if cfg.mla is not None:
+            out, cache = attn.mla_decode(p["mixer"], h, cache, cache_pos,
+                                         cfg)
+        else:
+            out, cache = attn.gqa_decode(
+                p["mixer"], h, cache, cache_pos, cfg,
+                layer_is_local=position_is_local(cfg, i))
+    elif kind == "mamba":
+        out, cache = ssm_mod.ssm_decode(p["mixer"], h, cache, cfg)
+    elif kind == "mlstm":
+        out, cache = xlstm_mod.mlstm_decode(p["mixer"], h, cache, cfg)
+    elif kind == "slstm":
+        out, cache = xlstm_mod.slstm_decode(p["mixer"], h, cache, cfg)
+    else:
+        raise ValueError(kind)
     x = x + out
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    out, aux = _apply_ffn(p["ffn"], h, cfg)
+    if cfg.is_moe_layer(i) and cfg.d_ff != 0:
+        # decode MoE: the batch as G groups of B / G tokens, capacity per
+        # group (the reference's GShard layout)
+        B, d = h.shape
+        G = math.gcd(B, MOE_DECODE_GROUPS)
+        out, aux = _apply_ffn(p["ffn"], h.reshape(G, B // G, d), cfg, True)
+        out = out.reshape(B, d)
+    else:
+        out, aux = _apply_ffn(p["ffn"], h, cfg, False)
     return x + out, cache, aux
 
 
@@ -153,12 +205,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     """Random params drawn from ``generator`` on ``device`` (the card
     unless ``device="cpu"``; the generator must live there): the
     reference's tree, with the layers of each pattern position stacked
-    over the repetitions."""
-    check_supported(cfg)
+    over the repetitions (the encoder-decoder's: :mod:`encdec`'s tree)."""
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
                          f"params were asked for {device}")
+    if cfg.is_encoder_decoder:
+        return encdec.init_params(generator, cfg)
     P = combined_period(cfg)
     reps = cfg.n_layers // P
     params: Dict[str, Any] = {
@@ -171,23 +224,32 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
                                        (cfg.d_model, cfg.padded_vocab))
     for i in range(P):
         params[f"pos{i}"] = layer_init(generator, cfg, i, (reps,))
+    if cfg.num_patches:
+        params["patch_proj"] = dense_init(generator,
+                                          (cfg.d_model, cfg.d_model))
     return params
-
-
-def _unstack(tree, reps: int) -> List:
-    """The ``reps`` per-layer views of a stacked param (or cache) tree."""
-    if isinstance(tree, dict):
-        parts = {k: _unstack(v, reps) for k, v in tree.items()}
-        return [{k: parts[k][r] for k in tree} for r in range(reps)]
-    return list(torch.unbind(tree, 0))
 
 
 def _layers(params, cfg: ModelConfig) -> List[List]:
     """layers[r][i]: the params of repetition r at pattern position i."""
     P = combined_period(cfg)
     reps = cfg.n_layers // P
-    per_pos = [_unstack(params[f"pos{i}"], reps) for i in range(P)]
+    per_pos = [unstack(params[f"pos{i}"], reps) for i in range(P)]
     return [[per_pos[i][r] for i in range(P)] for r in range(reps)]
+
+
+def _cache_layers(cache) -> List:
+    """The per-repetition views of one pattern position's stacked cache
+    (a NamedTuple of (reps, ...) tensors), each a NamedTuple of its
+    type."""
+    return [type(cache)(*fields)
+            for fields in zip(*(torch.unbind(f, 0) for f in cache))]
+
+
+def _stack_caches(caches: List):
+    """One pattern position's per-repetition caches stacked on a leading
+    axis (the reference's scan-stacked layout)."""
+    return type(caches[0])(*(torch.stack(list(f)) for f in zip(*caches)))
 
 
 # ---------------------------------------------------------------------------
@@ -221,9 +283,9 @@ def backbone_forward(params, h: torch.Tensor, positions: torch.Tensor,
                      cfg: ModelConfig, *, causal: bool = True
                      ) -> Tuple[torch.Tensor, Tuple, torch.Tensor]:
     """Run the pattern stack. h: (B, S, d). Returns (h, caches, aux):
-    caches per pattern position, each an ``AttnCache`` of (reps, B, S, KV,
-    hd) tensors, the layout of :func:`init_cache`."""
-    check_supported(cfg)
+    caches per pattern position, each stacked over the repetitions (an
+    ``AttnCache`` of (reps, B, S, ...) tensors or a recurrent state), the
+    layout of :func:`init_cache`."""
     P = combined_period(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     per_pos: List[List] = [[] for _ in range(P)]
@@ -233,9 +295,7 @@ def backbone_forward(params, h: torch.Tensor, positions: torch.Tensor,
                                         causal=causal)
             per_pos[i].append(cache)
             aux = aux + a
-    caches = tuple(attn.AttnCache(torch.stack([c.k for c in cs]),
-                                  torch.stack([c.v for c in cs]))
-                   for cs in per_pos)
+    caches = tuple(_stack_caches(cs) for cs in per_pos)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, caches, aux
 
@@ -247,45 +307,81 @@ def backbone_forward(params, h: torch.Tensor, positions: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device=None) -> Tuple:
-    """Zero attention caches per pattern position, stacked over
-    repetitions: (reps, B, max_seq, KV, hd) bf16, on ``device`` (the card
-    unless ``device="cpu"``). Shapes are those prefill returns."""
-    check_supported(cfg)
+    """Zero caches per pattern position, stacked over repetitions, on
+    ``device`` (the card unless ``device="cpu"``): attention caches of
+    (reps, B, max_seq, ...) bf16 slots (MLA's latent and rope key),
+    recurrent states O(1) in the sequence (the stabilisers at -1e30).
+    Shapes are those prefill returns."""
     device = resolve_device(device)
     P = combined_period(cfg)
     reps = cfg.n_layers // P
-    shape = (reps, batch, max_seq, cfg.n_kv, cfg.resolved_head_dim)
-    return tuple(attn.AttnCache(
-        torch.zeros(shape, dtype=PARAM_DTYPE, device=device),
-        torch.zeros(shape, dtype=PARAM_DTYPE, device=device))
-        for _ in range(P))
+    hd = cfg.resolved_head_dim
+    f32 = torch.float32
+
+    def zeros(*shape, dtype=PARAM_DTYPE):
+        return torch.zeros((reps, batch) + shape, dtype=dtype, device=device)
+
+    def stabiliser(*shape):
+        return torch.full((reps, batch) + shape, xlstm_mod.M_INIT,
+                          dtype=f32, device=device)
+
+    caches = []
+    for i in range(P):
+        kind = position_kind(cfg, i)
+        if kind == "attn":
+            if cfg.mla is not None:
+                c = attn.AttnCache(zeros(max_seq, cfg.mla.kv_rank),
+                                   zeros(max_seq, cfg.mla.rope_dim))
+            else:
+                c = attn.AttnCache(zeros(max_seq, cfg.n_kv, hd),
+                                   zeros(max_seq, cfg.n_kv, hd))
+        elif kind == "mamba":
+            d_inner, N, d_conv, _ = ssm_mod._dims(cfg)
+            c = ssm_mod.SSMCache(zeros(d_conv - 1, d_inner),
+                                 zeros(d_inner, N, dtype=f32))
+        elif kind == "mlstm":
+            d_inner, H, d_qk, d_v = xlstm_mod._mlstm_dims(cfg)
+            c = xlstm_mod.MLSTMCache(
+                zeros(H, d_qk, d_v, dtype=f32), zeros(H, d_qk, dtype=f32),
+                stabiliser(H), zeros(xlstm_mod.D_CONV - 1, d_inner))
+        elif kind == "slstm":
+            d = cfg.d_model
+            c = xlstm_mod.SLSTMCache(zeros(d, dtype=f32),
+                                     zeros(d, dtype=f32), stabiliser(d),
+                                     zeros(d, dtype=f32))
+        else:
+            raise ValueError(kind)
+        caches.append(c)
+    return tuple(caches)
 
 
-def decode_step(params, tokens: torch.Tensor, caches: Tuple, cache_pos,
-                cfg: ModelConfig, *, logits_mode: str = "full"
-                ) -> Tuple[torch.Tensor, Tuple]:
+def decode_step(params, tokens: torch.Tensor, caches, cache_pos,
+                cfg: ModelConfig, *, logits_mode: str = "full"):
     """One decoding step. tokens: (B,) ids; cache_pos: the write index (an
     int or a 0-d tensor).
 
     ``logits_mode``: "full" returns (B, V) f32 logits (bf16 products summed
     in f32, padding rows masked); "none" returns the final hidden state
-    (B, d) (the LSH-decode head consumes hidden states). The new keys and
-    values are written into ``caches`` in place, and ``caches`` is
-    returned.
+    (B, d) (the LSH-decode head consumes hidden states). Every cache is
+    written in place (recurrent states copied into their stacked tensors)
+    and ``caches`` is returned. The encoder-decoder's caches are
+    :func:`encdec.init_cache`'s dict.
     """
     if logits_mode not in ("full", "none"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
-    check_supported(cfg)
+    if cfg.is_encoder_decoder:
+        return encdec.decode_step(params, tokens, caches, cache_pos, cfg,
+                                  logits_mode=logits_mode)
     P = combined_period(cfg)
     h = _embed(params, tokens, cfg)
-    cache_layers = [_unstack({"k": c.k, "v": c.v}, c.k.shape[0])
-                    for c in caches]
+    cache_layers = [_cache_layers(c) for c in caches]
     for r, layer in enumerate(_layers(params, cfg)):
         for i in range(P):
-            c = cache_layers[i][r]
-            h, _, _ = layer_decode(layer[i], h,
-                                   attn.AttnCache(c["k"], c["v"]),
-                                   cache_pos, cfg, i)
+            view = cache_layers[i][r]
+            h, new, _ = layer_decode(layer[i], h, view, cache_pos, cfg, i)
+            for dst, src in zip(view, new):
+                if src is not dst:
+                    dst.copy_(src)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if logits_mode == "none":
         return h, caches
@@ -299,13 +395,17 @@ def decode_step(params, tokens: torch.Tensor, caches: Tuple, cache_pos,
 def extend_cache(cfg: ModelConfig, caches: Tuple, max_seq: int) -> Tuple:
     """Pad prefill attention caches (reps, B, S_prompt, ...) out to
     ``max_seq`` slots (zeros) so a decode loop can continue writing into
-    them."""
+    them; any rank (GQA's K/V are 5-D, MLA's latent and rope key 4-D).
+    Recurrent caches are O(1) and pass through unchanged."""
     out = []
-    for c in caches:
-        pad = max_seq - c.k.shape[2]
-        out.append(attn.AttnCache(
-            torch.nn.functional.pad(c.k, (0, 0, 0, 0, 0, pad)),
-            torch.nn.functional.pad(c.v, (0, 0, 0, 0, 0, pad))))
+    for i, c in enumerate(caches):
+        if position_kind(cfg, i) == "attn":
+            pad = max_seq - c.k.shape[2]
+            out.append(attn.AttnCache(*(
+                torch.nn.functional.pad(t, (0, 0) * (t.ndim - 3) + (0, pad))
+                for t in c)))
+        else:
+            out.append(c)
     return tuple(out)
 
 
@@ -314,14 +414,16 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Tuple]:
     """Full-sequence forward returning (last hidden (B, d), caches).
 
-    Attention caches come back (reps, B, S, ...), matching init_cache's
-    layout so a decode loop can continue from them.
+    ``patches`` (B, num_patches, d), for a config with patch embeddings,
+    are projected and prepended to the tokens' embeddings (positions 0 ..
+    num_patches + S - 1). Attention caches come back (reps, B, S, ...),
+    matching init_cache's layout so a decode loop can continue from them.
     """
-    if patches is not None:
-        raise NotImplementedError("patch embeddings come with a later "
-                                  "slice of the port (ROADMAP.md §1)")
     B, S = tokens.shape
     h = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=tokens.device)
+    if cfg.num_patches and patches is not None:
+        h = torch.cat([patches.to(h.dtype) @ params["patch_proj"], h], dim=1)
+        positions = torch.arange(cfg.num_patches + S, device=tokens.device)
     h, caches, _ = backbone_forward(params, h, positions, cfg)
     return h[:, -1], caches

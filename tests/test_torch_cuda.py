@@ -345,10 +345,13 @@ def test_hash_encode_kernel_raises_past_its_shared_memory(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("L", [27, 60, 122, 256])
-@pytest.mark.parametrize("d", [150, 1024, 4608, 8192])
+@pytest.mark.parametrize("d", [150, 768, 896, 1024, 2048, 2560, 4608, 5120,
+                               8192])
 @pytest.mark.parametrize("n", [37, 17001])
 def test_hash_encode_kernel_equals_plain_at_lm_widths(cuda_device, n, d, L):
-    """Every d_model width class up to 8192 and L up to 256 (W 1 to 8):
+    """Every d_model of ``configs/`` (768 whisper, 896 internvl2, 1024,
+    2048 xlstm, 2560 minicpm3, 4608, 5120 llama4, 8192 jamba) and L up to
+    256 (W 1 to 8):
     d = 150 stays on the resident design, wider rows go to the tiled one,
     a few rows (one row and one bit a thread) and many (8 rows x 2, 4 or 8
     bits a thread; N ragged against the 128-row block). Codes equal the
@@ -367,7 +370,7 @@ def test_hash_encode_kernel_equals_plain_at_lm_widths(cuda_device, n, d, L):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("d", [150, 1024, 8192])
+@pytest.mark.parametrize("d", [150, 768, 1024, 5120, 8192])
 def test_fused_query_kernel_equals_plain_at_lm_widths(cuda_device, d,
                                                       quantized):
     """The fused query at an LM's widths (the query's 512-column slices
@@ -546,3 +549,56 @@ def test_legacy_bucket_query_launches_bucket_match(cuda_device):
                            engine="bucket"), items, params=idx.A)
     cv, ci = cidx.query(q, 10, 200)
     assert torch.equal(si, ci)
+
+
+def _to(tree, device, dtype=None):
+    if isinstance(tree, dict):
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype or tree.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [
+    "granite_moe_1b_a400m", "llama4_scout_17b_a16e", "jamba_1_5_large_398b",
+    "minicpm3_4b", "xlstm_1_3b", "internvl2_1b", "whisper_small"])
+def test_model_blocks_on_the_card_equal_the_cpu(cuda_device, arch):
+    """Each family's blocks (MoE, MLA, Mamba, mLSTM and sLSTM, patches,
+    the encoder-decoder) at ``reduced()`` size on the card against the same
+    model on the CPU, f32 copies of one set of weights (TF32 off): prefill
+    and two decode steps, hidden states within atol and rtol 1e-3 (f32
+    sums in another order, through 2-16 layers)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import encdec, lm
+    cfg = get_config(arch).reduced()
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    rng = np.random.default_rng(480)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)))
+    frames = torch.as_tensor((0.1 * rng.standard_normal(
+        (2, cfg.encoder_frames, cfg.d_model))).astype(np.float32))
+    patches = (0.1 * torch.ones((2, cfg.num_patches, cfg.d_model))
+               if cfg.num_patches else None)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        p = _to(params, dev, torch.float32)
+        t = toks.to(dev)
+        if cfg.is_encoder_decoder:
+            enc = encdec.encoder_forward(p["encoder"], frames.to(dev), cfg)
+            caches = encdec.init_cache(cfg, 2, 20, device=dev)
+            caches["cross_k"], caches["cross_v"] = encdec.cross_kv(
+                p["layers"], enc, cfg)
+            hs, start = [enc[:, -1]], 0
+        else:
+            h, caches = lm.prefill(p, t, cfg, None if patches is None
+                                   else patches.to(dev))
+            caches = lm.extend_cache(cfg, caches, 64)
+            hs, start = [h], 16 + (cfg.num_patches if cfg.num_patches
+                                   else 0)
+        for step in range(2):
+            h, caches = lm.decode_step(p, t[:, step], caches, start + step,
+                                       cfg, logits_mode="none")
+            hs.append(h)
+        runs.append([x.float().cpu().numpy() for x in hs])
+    for a, b in zip(*runs):
+        assert np.isfinite(b).all()
+        np.testing.assert_allclose(b, a, atol=1e-3, rtol=1e-3)

@@ -8,8 +8,11 @@ within atol 2e-5 (f32 sums in another order); the bf16 stack within atol
 and rtol 3e-2 on hidden states (bf16 rounds at other places in the two
 frameworks: one bf16 ulp is 2^-8 relative, and a block adds a few), and
 logits within atol 5e-2 (unit-norm-scale logits of the reduced models).
-Also: the configs equal the reference's, unsupported families raise, and
-the kernel plans take every config's width.
+Also: the configs equal the reference's, and the kernel plans take every
+config's width. The other families (MoE, MLA, Mamba, xLSTM, patches, the
+encoder-decoder) are held to the reference in ``test_torch_archs.py``,
+``test_torch_moe.py``, ``test_torch_recurrent.py`` and
+``test_torch_encdec.py``.
 """
 
 import dataclasses
@@ -70,14 +73,6 @@ def test_config_registry_equals_the_reference():
         k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
     with pytest.raises(ValueError, match="unknown arch"):
         base.get_config("nope")
-
-
-@pytest.mark.parametrize("arch", sorted(set(jbase.ARCH_IDS) - {
-    "qwen3_0_6b", "qwen2_1_5b", "gemma2_27b"}))
-def test_families_of_later_slices_raise(arch):
-    cfg = base.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
 
 
 @pytest.mark.parametrize("shape", [(3, 64), (2, 5, 4, 16)])
