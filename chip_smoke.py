@@ -184,6 +184,49 @@ Phases, each fatal on failure:
    exactly) and one MoE layer (16 experts top-2, d_ff 24,576: a prefill
    batch and a decode group, finite, aux >= 1).
 
+9. Training at full width, no kernel of its own (the reference trains
+   with jnp ops under ``jax.value_and_grad``; the port with autograd).
+   Qwen3-0.6B as published (28 layers, d 1024, vocab 151,936 padded to
+   152,064, tied embeddings), random bf16 weights from a seed (no
+   checkpoint is in the repository), the synthetic corpus at sequence
+   512 and global batch 8, ``TrainHParams(lr=1e-3, warmup=2,
+   total_steps=20)`` with bf16 gradient compression: ``run_training`` for
+   4 steps with one checkpoint (~8.4 GB: bf16 params, f32 AdamW moments
+   and residuals) in a temporary directory under ``build/``, whose
+   restore must equal the saved state bit for bit, then ``run_training``
+   again to step 6 from it, which must start at step 4; the loss at step
+   5 must lie below step 0's. Then Qwen3-0.6B, granite-moe-1b-a400m (24
+   layers, 32 experts top-8, batch 8 x 512) and whisper-small (12 + 12
+   layers, 1,500 seeded frames, batch 4 x 448, its decoder's limit)
+   through ``make_train_step`` for 5 steps each: every loss, ce, aux and
+   gnorm finite, granite's aux >= 1, every param and gradient on the
+   card. Printed for each: parameter count, step p50 on the host clock
+   (ending in a synchronise, the first step left out), tokens/s, the
+   median of 3 steps split into forward, backward and optimizer (CUDA
+   events), one profiled step's device-busy share, peak memory above what
+   the earlier phases still hold; Qwen3's checkpoint size, write and restore
+   seconds. The directory is removed afterwards.
+
+10. The paper's own application: ALS embeddings served through
+    RANGE-LSH. ``synthetic_ratings`` at 20,000 users x 17,770 items
+    (Netflix's item count; users cut from 480,189, whose dense ratings
+    and weights would take 68 GB), true rank 16, density 0.05;
+    ``als_factorize`` at rank 300 (the ``netflix`` profile's d), 8
+    sweeps, each sweep one call from the previous factors. A RANGE-LSH
+    index (code_len 32, m 32, percentile, recall target 0.9) over the
+    item factors, calibrated on 256 held-out users; 1,024 user queries
+    in batches of 64 through the fused, fused-int8, bucket and dense arms
+    at the planned budgets, truth from ``mips_topk``. The launch counters
+    and a dispatch tracker are zeroed just before the path and read right
+    after. Checks: the loss falls from sweep 1 to sweep 8, recall@10 >=
+    0.85 in every arm, bucket and dense candidate ids identical, fused
+    ids equal the bucket arm's tie-aware, each of ``ALS_KERNELS``
+    launched with ``.cuda`` dispatch counts equal to launches and no
+    ``.ref`` dispatch. Printed: loss and seconds by sweep, the item-norm
+    max/median, the planned width and ms per batch per arm; then kernel
+    rows for ``hash_encode`` at 17,770 x 300 x 27 and ``fused_query`` at
+    d 300, measured as phase 4's.
+
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside it, the script exits
@@ -194,6 +237,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -270,6 +314,30 @@ MODEL_RUNS = (
      ("lsh_dense", "fused", "fused_int8")),
 )
 FUSED_HEADS = ("fused", "fused_int8")
+# phase 9: training, Qwen3-0.6B through run_training with a checkpoint and
+# a resume, then (arch, global batch, sequence) through make_train_step
+TRAIN_ARCH = "qwen3_0_6b"
+TRAIN_BATCH = 8
+TRAIN_SEQ = 512
+TRAIN_STEPS = 4           # the first run, one checkpoint at its end
+TRAIN_RESUME = 6          # the resumed run's last step + 1
+TRAIN_HP = dict(lr=1e-3, warmup=2, total_steps=20)
+TRAIN_RUNS = (("qwen3_0_6b", 8, 512), ("granite_moe_1b_a400m", 8, 512),
+              ("whisper_small", 4, 448))   # whisper's decoder holds 448
+TRAIN_TIMED = 5           # host-timed steps of each model
+# phase 10: ALS at Netflix's item count (data/synthetic.py's netflix
+# profile: 17,770 items, d 300); users cut from 480,189
+ALS_USERS = 20000
+ALS_ITEMS = 17770
+ALS_RANK = 300
+ALS_TRUE_RANK = 16
+ALS_DENSITY = 0.05
+ALS_SWEEPS = 8
+ALS_CAL = 256             # held-out users calibrating the planner
+ALS_QUERIES = 1024        # user queries, 16 batches of 64
+ALS_RECALL = 0.85
+ALS_KERNELS = ("hash_encode", "hamming_scan", "bucket_gather",
+               "fused_query", "fused_query_int8", "mips_topk")
 MODEL_BATCH = 8           # requests of a generate call
 MODEL_PROMPT = 64         # prompt tokens
 MODEL_STEPS = 16          # greedy tokens a request
@@ -374,10 +442,11 @@ def profiled(run, reps: int = 1):
     return prof, wall_us
 
 
-def profile_batch(label, run, top: int = 8) -> None:
+def profile_batch(label, run, top: int = 8):
     """Where one query batch (or one kernel call) spends device time: the
     device kernels with the most time under ``torch.profiler``, and the
-    device busy share of the wall time (profiler overhead included)."""
+    device busy share of the wall time (profiler overhead included).
+    Returns the profiler."""
     from torch.autograd import DeviceType
     prof, wall_us = profiled(run)
 
@@ -395,11 +464,12 @@ def profile_batch(label, run, top: int = 8) -> None:
     if busy <= 0:
         print("profile: the profiler recorded no device time "
               "(busy share not measured)")
-        return
+        return prof
     print(f"profile: {label}: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%)")
     for e in kernels[:top]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+    return prof
 
 
 def device_ms(call, reps: int = 20, names=("_kernel",)) -> float | None:
@@ -2247,6 +2317,522 @@ def model_phase(ops, dev, card, compare, paths):
     print(f"model: phase 8 {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 9: training at full width -----------------------------------------
+
+
+def step_split(prof, label, card) -> None:
+    """The profiled train step in three parts. The autograd engine's
+    events bound the backward (the recompute of each checkpointed period
+    and loss chunk included): the forward runs from the step's first host
+    event to the engine's first, the optimizer from the engine's last to
+    the step's last (the closing synchronise included). Each part: its
+    host span and the device busy time inside that span."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events()
+              if not e.name.startswith("ProfilerStep")]
+    host = [e.time_range for e in events if e.device_type == DeviceType.CPU]
+    kernels = [e.time_range for e in events
+               if e.device_type == DeviceType.CUDA]
+    engine = [e.time_range for e in events if e.device_type ==
+              DeviceType.CPU and e.name.startswith("autograd::engine::")]
+    if not host or not engine or not kernels:
+        print(f"train: {label}: split not measured (the profiler recorded "
+              f"{len(engine)} autograd engine and {len(kernels)} device "
+              f"events)")
+        return
+    t0, t1 = min(r.start for r in host), max(r.end for r in host)
+    b0, b1 = min(r.start for r in engine), max(r.end for r in engine)
+
+    def busy(lo, hi):
+        return sum(max(0, min(r.end, hi) - max(r.start, lo))
+                   for r in kernels)
+
+    parts = {"forward": (t0, b0), "backward": (b0, b1),
+             "optimizer": (b1, t1)}
+    print(f"train: {label}: profiled step split " + ", ".join(
+        f"{k} {(hi - lo) / 1e3:.1f} ms host span, {busy(lo, hi) / 1e3:.1f} "
+        f"ms device busy" for k, (lo, hi) in parts.items())
+        + f" (device busy in all {busy(t0, t1) / 1e3:.1f} of "
+        f"{sum(r.end - r.start for r in kernels) / 1e3:.1f} ms) [{card}]")
+
+
+def equal_bits(got, want, label) -> int:
+    """Fatal unless every leaf of ``got`` has the dtype and device of the
+    same path's leaf in ``want`` and the same bits; returns the count."""
+    import torch
+    from repro_torch.tree import flatten_with_paths
+    want = dict(flatten_with_paths(want))
+    n = 0
+    for k, a in flatten_with_paths(got):
+        b = want.pop(k)
+        if a.dtype != b.dtype or a.device != b.device or not torch.equal(
+                a.reshape(-1).view(torch.uint8),
+                b.reshape(-1).view(torch.uint8)):
+            fail(f"{label}: restored leaf {k} differs from the saved one")
+        n += 1
+    if want:
+        fail(f"{label}: leaves not restored: {sorted(want)}")
+    return n
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(path) for f in fs)
+
+
+def checkpoint_round_trip(state, label, card) -> None:
+    """A direct ``CheckpointManager.save`` and ``restore`` of ``state``
+    under build/, each timed (the restore ends in a synchronise); fatal
+    unless the restored state equals ``state`` bit for bit. The directory
+    is removed."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    build = SRC.parent / "build"
+    build.mkdir(exist_ok=True)
+    path = tempfile.mkdtemp(prefix=f"ckpt_{label}_", dir=build)
+    try:
+        free = shutil.disk_usage(path).free
+        mgr = CheckpointManager(path)
+        t = time.perf_counter()
+        mgr.save(0, state)
+        t_write = time.perf_counter() - t
+        size = dir_bytes(path)
+        t = time.perf_counter()
+        restored = mgr.restore(0, state)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t
+        n = equal_bits(restored, state, f"train {label}")
+        del restored
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    print(f"train: {label}: checkpoint {size / 1e9:.2f} GB ({free / 1e9:.0f} "
+          f"GB free before), write {t_write:.1f} s, restore {t_restore:.1f} "
+          f"s, {n} leaves equal the saved state bit for bit [{card}]")
+
+
+def train_model(arch, batch_size, seq, seed, dev, card):
+    """``TRAIN_TIMED`` steps of ``make_train_step`` on a fresh state of
+    ``arch`` at full width (1,500 seeded frames for the encoder-decoder):
+    host-clock step times ending in a synchronise, peak memory, one
+    profiled step (its device-busy share and its forward, backward and
+    optimizer split), a timed checkpoint write and restore. Fatal unless
+    every metric is finite, every param and gradient lives on the card and
+    (MoE) aux is at least 1 a MoE layer."""
+    import math
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch)
+    hp = train.TrainHParams(**TRAIN_HP)
+    label = arch.split("_")[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # earlier phases' tensors
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = train.init_state(gen, cfg, device=dev)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    corpus = SyntheticCorpus(cfg.vocab, seq, seed=seed, device=dev)
+
+    def batch_at(s):
+        b = dict(corpus.sample(s, 0, batch_size)._asdict())
+        if cfg.is_encoder_decoder:
+            b["frames"] = torch.randn(
+                (batch_size, cfg.encoder_frames, cfg.d_model),
+                generator=gen, device=dev)
+        return b
+
+    step_fn = train.make_train_step(cfg, hp)
+    ms, metrics = [], []
+    for s in range(TRAIN_TIMED):
+        b = batch_at(s)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step_fn(state, b, s)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        metrics.append(m)
+        print(f"train: {label} step {s}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in m.items()) + f"; {ms[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated() - base
+    for m in metrics:
+        if not all(math.isfinite(m[k]) for k in ("loss", "ce", "aux",
+                                                  "gnorm")):
+            fail(f"train {label}: a metric is not finite: {m}")
+    if cfg.moe is not None:
+        period = len(cfg.layer_pattern)
+        n_moe = cfg.n_layers // period * sum(
+            cfg.is_moe_layer(i) for i in range(period))
+        per_layer = [m["aux"] / n_moe for m in metrics]
+        print(f"train: {label}: aux a MoE layer ({n_moe} of them) "
+              + ", ".join(f"{v:.4f}" for v in per_layer))
+        if min(per_layer) < 1.0:
+            fail(f"train {label}: MoE aux < 1 a layer: {per_layer}")
+    nxt = TRAIN_TIMED
+    _, _, grads = train.loss_and_grads(state.params, batch_at(nxt), cfg, hp)
+    where = {t.device.type for t in leaves(state)}
+    gdev = {g.device.type for g in leaves(grads)}
+    del grads
+    if where != {"cuda"} or gdev != {"cuda"}:
+        fail(f"train {label}: state on {where}, gradients on {gdev}")
+    p50 = statistics.median(ms[1:])
+    tokens = batch_size * seq
+    print(f"train: {label}: {n_params} params, {cfg.n_layers} layers, "
+          f"batch {batch_size} x {seq}; step p50 {p50:.1f} ms (first "
+          f"{ms[0]:.1f}), {1e3 * tokens / p50:.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB earlier "
+          f"phases hold [{card}]")
+    prof = profile_batch(f"train step {label}",
+                         lambda: step_fn(state, batch_at(nxt), nxt))
+    step_split(prof, label, card)
+    del prof
+    torch.cuda.empty_cache()
+    checkpoint_round_trip(state, label, card)
+    del state
+    return metrics
+
+
+def train_phase(dev, card):
+    """Phase 9: Qwen3-0.6B through ``run_training`` with a checkpoint and
+    a resume; the restored step is held bit for bit against the digests
+    the trainer's save wrote. Then each of ``TRAIN_RUNS`` through
+    ``train_model``."""
+    import math
+    import shutil
+    import tempfile
+    import zlib
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    from repro_torch.tree import flatten_with_paths
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    hp = train.TrainHParams(**TRAIN_HP)
+    build = SRC.parent / "build"
+    build.mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=build)
+    losses = {}
+
+    def log(s, m):
+        losses[s] = m
+        print(f"train: run_training step {s}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in m.items()))
+
+    kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, ckpt_dir=ckpt,
+              ckpt_every=TRAIN_STEPS, log_every=1, seed=SEED + 190,
+              on_metrics=log, device=dev)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # earlier phases' tensors
+        t = time.perf_counter()
+        train.run_training(cfg, hp, steps=TRAIN_STEPS, **kw)
+        t_run = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        mgr = CheckpointManager(ckpt)
+        if mgr.all_steps() != [TRAIN_STEPS]:
+            fail(f"train: checkpoints {mgr.all_steps()}, not step "
+                 f"{TRAIN_STEPS} alone")
+        digests = mgr.manifest(TRAIN_STEPS)["leaves"]
+        size = dir_bytes(ckpt)
+        # a template of other values: what comes back is the file's
+        template = train.init_state(
+            torch.Generator(device=dev).manual_seed(SEED + 189), cfg,
+            device=dev)
+        t = time.perf_counter()
+        restored = mgr.restore(TRAIN_STEPS, template)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t
+        n_leaves = 0
+        for (k, a), (_, b) in zip(flatten_with_paths(restored),
+                                  flatten_with_paths(template)):
+            raw = a.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+            if (a.dtype != b.dtype or a.device != b.device
+                    or zlib.crc32(raw.tobytes()) != digests.pop(k)["crc32"]):
+                fail(f"train: restored leaf {k} differs from the one "
+                     f"run_training saved")
+            n_leaves += 1
+        if digests:
+            fail(f"train: saved leaves not restored: {sorted(digests)}")
+        print(f"train: {TRAIN_ARCH} run_training {TRAIN_STEPS} steps "
+              f"{t_run:.1f} s (init, steps and the checkpoint's write), peak "
+              f"memory {peak / 2**30:.2f} GiB above the earlier phases'; "
+              f"checkpoint of step {TRAIN_STEPS}: {size / 1e9:.2f} GB, "
+              f"restore {t_restore:.1f} s, {n_leaves} restored leaves match "
+              f"the crc32 of each leaf run_training saved [{card}]")
+        del restored, template
+        torch.cuda.empty_cache()
+        first = len(losses)
+        t = time.perf_counter()
+        train.run_training(cfg, hp, steps=TRAIN_RESUME, **kw)
+        print(f"train: resumed run to step {TRAIN_RESUME} "
+              f"{time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    resumed = sorted(losses)[first:]
+    if resumed[:1] != [TRAIN_STEPS]:
+        fail(f"train: the resumed run started at {resumed[:1]}, not "
+             f"{TRAIN_STEPS}")
+    for s, m in losses.items():
+        if not all(math.isfinite(m[k]) for k in ("loss", "ce", "aux",
+                                                  "gnorm")):
+            fail(f"train: step {s} metrics not finite: {m}")
+    last = max(losses)
+    print(f"train: loss step 0 {losses[0]['loss']:.6g}, step {last} "
+          f"{losses[last]['loss']:.6g} (margin "
+          f"{losses[0]['loss'] - losses[last]['loss']:.6g}), highest "
+          f"{max(m['loss'] for m in losses.values()):.6g}")
+    if not losses[last]["loss"] < losses[0]["loss"]:
+        fail(f"train: loss at step {last} ({losses[last]['loss']}) is not "
+             f"below step 0's ({losses[0]['loss']})")
+    torch.cuda.empty_cache()
+    for j, (arch, batch_size, seq) in enumerate(TRAIN_RUNS):
+        train_model(arch, batch_size, seq, SEED + 191 + j, dev, card)
+        torch.cuda.empty_cache()
+    print(f"train: phase 9 {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 10: ALS embeddings through RANGE-LSH -------------------------------
+
+
+def als_phase(ops, dev, card):
+    """Phase 10: the paper's own application. ALS factors of synthetic
+    Netflix-sized ratings, a RANGE-LSH index over the item factors
+    calibrated on held-out users, the other users' queries through every
+    arm, the launch counters and a dispatch tracker zeroed just before
+    the path and read right after it. Returns the path's launches and
+    shapes and the kernel cases at its shapes."""
+    import torch
+    from repro_torch.core import planner
+    from repro_torch.core.engine import (QueryEngine, _directory_order,
+                                         _planned_runs, engine_for)
+    from repro_torch.core.index import IndexSpec, build
+    from repro_torch.data import als
+    from repro_torch.obs import RingBufferSink, Tracker
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 200)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    dispatch = Tracker([RingBufferSink(capacity=1 << 10)])
+    ops.set_dispatch_tracker(dispatch)
+    try:
+        t = time.perf_counter()
+        ratings, weights = als.synthetic_ratings(
+            gen, ALS_USERS, ALS_ITEMS, true_rank=ALS_TRUE_RANK,
+            density=ALS_DENSITY)
+        start = als.als_factorize(ratings, weights, ALS_RANK, gen, iters=0)
+        torch.cuda.synchronize()
+        print(f"als: ratings {ALS_USERS} x {ALS_ITEMS} ({int(weights.sum())} "
+              f"observed) and a rank-{ALS_RANK} start "
+              f"{time.perf_counter() - t:.2f} s")
+        users, items = start.users, start.items
+        losses, secs = [], []
+        for _ in range(ALS_SWEEPS):
+            t = time.perf_counter()
+            st = als.als_factorize(ratings, weights, ALS_RANK,
+                                   init=(users, items), iters=1)
+            users, items = st.users, st.items
+            losses.append(float(st.loss))
+            secs.append(time.perf_counter() - t)
+        del ratings, weights
+        spec = IndexSpec(family="simple", code_len=32, m=32,
+                         scheme="percentile", engine="fused",
+                         recall_target=RECALL_TARGET)
+        t = time.perf_counter()
+        idx = build(dataclasses.replace(spec, recall_target=None), items,
+                    gen, device=dev)
+        idx = idx._replace(spec=spec, calib=planner.calibrate(
+            idx, users[:ALS_CAL]))
+        fused = engine_for(idx, engine="fused")
+        torch.cuda.synchronize()
+        t_index = time.perf_counter() - t
+        plan = planner.resolve_budgets(idx.calib, RECALL_TARGET, k=K)
+        budgets = plan.budgets
+        arms = {
+            "fused": None,
+            "fused_int8": QueryEngine(idx, engine="fused", quantized=True,
+                                      buckets=fused.buckets, device=dev),
+            "bucket": QueryEngine(idx, engine="bucket",
+                                  buckets=fused.buckets, device=dev),
+            "dense": QueryEngine(idx, engine="dense", buckets=fused.buckets,
+                                 device=dev),
+        }
+        queries = users[ALS_CAL:ALS_CAL + ALS_QUERIES]
+        ms = {a: [] for a in arms}
+        outs = {a: [] for a in arms}
+        cands, truth = [], []
+        for s in range(0, ALS_QUERIES, BATCH):
+            qb = queries[s:s + BATCH]
+            for arm, eng in arms.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = (idx.query(qb, k=K) if eng is None
+                       else eng.query(qb, K, budgets=budgets))
+                torch.cuda.synchronize()
+                ms[arm].append(1e3 * (time.perf_counter() - t))
+                outs[arm].append(out)
+            cands.append((arms["bucket"].candidates(qb, budgets=budgets),
+                          arms["dense"].candidates(qb, budgets=budgets)))
+            truth.append(ops.mips_topk(qb, items, K)[1])
+        torch.cuda.synchronize()
+    finally:
+        ops.set_dispatch_tracker(None)
+    launches = dict(ops.launch_counts)
+    shapes = dict(ops.launch_shapes)
+    want = ALS_KERNELS
+    print(f"launches on the phase-10 path: "
+          f"{ {k: launches[k] for k in want} }")
+    idle = [op for op in want if launches[op] == 0]
+    if idle:
+        fail(f"als: kernels never launched on its path: {idle}")
+    counted = {op: int(dispatch.counters.get(
+        f"repro.kernels.dispatch.{op}.cuda", 0)) for op in ops.OPS}
+    launched = {op: launches[op] for op in ops.OPS}
+    launched["fused_query"] += launches["fused_query_int8"]
+    refs = sorted(k for k in dispatch.counters if k.endswith(".ref"))
+    if counted != launched or refs:
+        fail(f"als: dispatch counts {counted} != launches {launched} (ref "
+             f"dispatches {refs})")
+
+    # -- the checks ---------------------------------------------------------
+    print("als: loss by sweep " + ", ".join(f"{v:.6g}" for v in losses)
+          + "; seconds by sweep " + ", ".join(f"{v:.2f}" for v in secs)
+          + f" [{card}]")
+    if not losses[-1] < losses[0]:
+        fail(f"als: loss did not fall from sweep 1 ({losses[0]}) to sweep "
+             f"{ALS_SWEEPS} ({losses[-1]})")
+    norms = torch.linalg.vector_norm(items, dim=1)
+    print(f"als: item norms max {float(norms.max()):.4f}, median "
+          f"{float(norms.median()):.4f} (max/median "
+          f"{float(norms.max() / norms.median()):.2f}); index and "
+          f"calibration {t_index:.2f} s; plan width {plan.num_probe} of "
+          f"{ALS_ITEMS}, predicted {plan.predicted_recall:.4f}")
+    truth_n = sum(t_.numel() for t_ in truth)
+    tie_diffs = 0
+    for b_, (cb, cd) in enumerate(cands):
+        if not torch.equal(cb, cd):
+            fail(f"als: batch {b_}: bucket and dense candidate ids differ")
+        qb = queries[b_ * BATCH:(b_ + 1) * BATCH]
+        fv, fi = outs["fused"][b_]
+        sv, si = outs["bucket"][b_]
+        tie_diffs += check_topk("als fused vs bucket", fi, fv, si, sv, qb,
+                                items)[1]
+    for arm in arms:
+        hits = sum(int((ids[:, :, None] == t_[:, None, :]).any(1).sum())
+                   for (_, ids), t_ in zip(outs[arm], truth))
+        rec = hits / truth_n
+        print(f"als: {arm:10s} recall@{K} {rec:.4f} median "
+              f"{statistics.median(ms[arm]):.3f} ms/batch of {BATCH}, width "
+              f"{plan.num_probe} [{card}]")
+        if rec < ALS_RECALL:
+            fail(f"als: {arm} recall@{K} {rec:.4f} < {ALS_RECALL}")
+    print(f"als: fused vs bucket ids differ in {tie_diffs} tied slots")
+
+    # -- kernel cases at the path's shapes -----------------------------------
+    qb = queries[:BATCH]
+    fam = idx.family
+    x = idx.items / idx.upper_eff[idx.range_id][:, None]
+    tail = torch.sqrt(torch.clamp_min(1.0 - torch.sum(x * x, -1), 0.0))
+    A, a_tail = idx.params[:-1], idx.params[-1]
+    q_codes = fam.encode_queries(idx.params, qb)
+    order = _directory_order(fused.buckets, q_codes, fused._match_fn)
+    cum, starts = _planned_runs(fused.buckets, order, budgets)
+    total = plan.num_probe
+    items_csr, _, _ = fused._fused_arrays
+    items_csr8, payload, scale = arms["fused_int8"]._fused_arrays
+    n, d = x.shape
+    L, W = idx.hash_bits, idx.codes.shape[1]
+    runs = held_runs(cum, total)
+    live = (torch.arange(total, device=dev)[None] < cum[:, -1:])
+    slots = int(live.sum())
+    probed = ops.bucket_gather(cum, starts, total, impl="ref")
+    probed_rows = int(torch.unique(probed[live]).numel())
+    kp = max(K, min(max(4 * K, 32), total))
+    _, sp = ops.fused_query(qb, cum, starts, items_csr, total, kp,
+                            kprime=kp, impl="ref")
+    surv = int((sp >= 0).sum())
+    _, sp = ops.fused_query(qb, cum, starts, items_csr8, total, kp,
+                            kprime=kp, payload=payload, scale=scale,
+                            impl="ref")
+    surv8 = int((sp >= 0).sum())
+    surv8_rows = int(torch.unique(sp[sp >= 0]).numel())
+    del sp
+
+    def topk_check(name, rows):
+        return lambda got, want: check_topk(name, got[1], got[0], want[1],
+                                            want[0], qb, rows)
+
+    src = "src/repro_torch/kernels/csrc/"
+    cases = {
+        "hash_encode_als": dict(
+            call=lambda impl: ops.hash_encode(x, A, tail, a_tail, impl=impl),
+            bytes=4 * (n * d + d * L + n + L + n * W),
+            ops=2 * n * d * L + 2 * n * L, op_rate=PEAK_OPS_NO_FMA,
+            device=("hash_encode",), kernel="hash_encode", path="als",
+            source=src + "hash_encode.cu",
+            replaces="src/repro/kernels/hash_encode.py:83"),
+        "fused_query_als": dict(
+            call=lambda impl: ops.fused_query(qb, cum, starts, items_csr,
+                                              total, K, impl=impl),
+            bytes=(4 * BATCH * d + 8 * runs + 8 * BATCH * K
+                   + probed_rows * (4 * d + 4)),
+            ops=2 * (slots + surv) * d, kernel="fused_query", path="als",
+            check=topk_check("fused_query (als)", items_csr),
+            source=src + "fused_query.cu",
+            replaces="src/repro/kernels/fused_query.py:156", cold=True),
+        "fused_query_int8_als": dict(
+            call=lambda impl: ops.fused_query(
+                qb, cum, starts, items_csr8, total, K, payload=payload,
+                scale=scale, impl=impl),
+            bytes=(4 * BATCH * d + 8 * runs + 8 * BATCH * K
+                   + probed_rows * (d + 4) + surv8_rows * 4 * d),
+            ops=2 * (slots + surv8) * d, kernel="fused_query_int8",
+            path="als", check=topk_check("fused_query_int8 (als)",
+                                         items_csr8),
+            source=src + "fused_query.cu",
+            replaces="src/repro/kernels/fused_query.py:156", cold=True),
+        # the dense arm's scan of every item code
+        "hamming_scan_als": dict(
+            call=lambda impl: ops.hamming_scan(q_codes, idx.codes,
+                                               impl=impl),
+            bytes=4 * (BATCH * W + n * W + BATCH * n),
+            ops=2 * BATCH * n * W, ceiling=(BATCH, n),
+            kernel="hamming_scan", path="als",
+            source=src + "hamming.cu",
+            replaces="src/repro/kernels/hamming.py:46"),
+        # the bucket arm's gather of the planned probes
+        "bucket_gather_als": dict(
+            call=lambda impl: ops.bucket_gather(cum, starts, total,
+                                                impl=impl),
+            bytes=4 * (2 * runs + BATCH * total),
+            ops=2 * slots, ceiling=(BATCH, total),
+            device=("bucket_gather_kernel",), kernel="bucket_gather",
+            path="als", source=src + "bucket_gather.cu",
+            replaces="src/repro/kernels/bucket_probe.py:124"),
+        # the recall truth itself
+        "mips_topk_als": dict(
+            call=lambda impl: ops.mips_topk(qb, items, K, impl=impl),
+            bytes=4 * (BATCH * d + n * d + 2 * BATCH * K),
+            ops=2 * BATCH * n * d, kernel="mips_topk", path="als",
+            library=lambda: torch.topk(qb @ items.T, K),
+            check=topk_check("mips_topk (als)", items),
+            source=src + "mips_topk.cu",
+            replaces="src/repro/kernels/mips_topk.py:93", cold=True),
+    }
+    print(f"als: phase 10 {time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes, cases
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2654,6 +3240,17 @@ def main() -> int:
 
     # -- 8. every other config through the LSH vocabulary head ----------------
     model_phase(ops, dev, smi, compare, paths)
+    torch.cuda.empty_cache()
+
+    # -- 9. training at full width --------------------------------------------
+    train_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # -- 10. ALS embeddings through RANGE-LSH ---------------------------------
+    als_launches, als_shapes, als_cases = als_phase(ops, dev, smi)
+    paths["als"] = (als_launches, als_shapes)
+    compare(als_cases)
+    del als_cases
     for row in rows:
         row["launches_by_path"] = {p_: runs_[row["kernel"]]
                                    for p_, (runs_, _) in paths.items()}

@@ -9,10 +9,13 @@ snapshots::
         manifest.json       # step, leaf paths, shapes, dtypes, crc32s
     <dir>/LATEST            # text file holding the newest complete step
 
-A tree is nested dicts (keys in sorted order), lists and tuples; a leaf is
-a numpy array, a torch tensor or a scalar. Leaf keys are the reference's
-tree paths: ``['store']/['items']`` for ``tree["store"]["items"]``,
-``[0]`` for a sequence position.
+A tree is nested dicts (keys in sorted order), lists, tuples and
+NamedTuples; a leaf is a numpy array, a torch tensor or a scalar. Leaf
+keys are the reference's tree paths (:mod:`repro_torch.tree`):
+``['store']/['items']`` for ``tree["store"]["items"]``, ``[0]`` for a
+sequence position, and ``.name`` for a NamedTuple field, as
+``jax.tree_util`` spells a ``GetAttrKey`` (``.opt/.mu/['embed']`` in a
+``TrainState``).
 
   * writes go to a temp dir and are renamed into place — a crash mid-write
     never corrupts LATEST (restart reads the previous complete step);
@@ -35,6 +38,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import flatten_with_paths, unflatten
+
 Tree = Any
 
 _NATIVE_DTYPES = {
@@ -44,33 +49,6 @@ _NATIVE_DTYPES = {
 _UINT_FOR_WIDTH = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 # logical dtypes numpy cannot hold, stored as same-width uint views
 _TORCH_ONLY = {"bfloat16": torch.bfloat16}
-
-
-def _flatten_with_paths(tree: Tree, prefix: str = ""
-                        ) -> List[Tuple[str, Any]]:
-    """(path key, leaf) pairs in the reference's order and spelling."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten_with_paths(tree[k], f"{prefix}/[{k!r}]")
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _flatten_with_paths(v, f"{prefix}/[{i}]")
-        return out
-    return [(prefix[1:], tree)]
-
-
-def _unflatten(template: Tree, values: Dict[str, Any], prefix: str = ""
-               ) -> Tree:
-    if isinstance(template, dict):
-        return {k: _unflatten(template[k], values, f"{prefix}/[{k!r}]")
-                for k in sorted(template)}
-    if isinstance(template, (list, tuple)):
-        return type(template)(_unflatten(v, values, f"{prefix}/[{i}]")
-                              for i, v in enumerate(template))
-    return values[prefix[1:]]
 
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
@@ -142,7 +120,7 @@ class CheckpointManager:
 
     @staticmethod
     def _snapshot(tree: Tree) -> Dict[str, Tuple[np.ndarray, str]]:
-        return {k: _to_host(v) for k, v in _flatten_with_paths(tree)}
+        return {k: _to_host(v) for k, v in flatten_with_paths(tree)}
 
     def _write(self, step: int, host: Dict[str, Tuple[np.ndarray, str]]
                ) -> str:
@@ -209,7 +187,7 @@ class CheckpointManager:
         manifest = self.manifest(step)
         values = {}
         with np.load(os.path.join(path, "arrays.npz")) as data:
-            for key, tmpl in _flatten_with_paths(template):
+            for key, tmpl in flatten_with_paths(template):
                 arr = data[key]
                 meta = manifest["leaves"][key]
                 crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
@@ -221,7 +199,7 @@ class CheckpointManager:
                                      f"template {tuple(np.shape(tmpl))}")
                 values[key] = _from_host(
                     arr, meta.get("logical_dtype", meta["dtype"]), tmpl)
-        return _unflatten(template, values)
+        return unflatten(template, values)
 
     def restore_latest(self, template: Tree) -> Tuple[Optional[int], Tree]:
         step = self.latest_step()

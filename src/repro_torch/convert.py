@@ -11,6 +11,9 @@ A legacy shim tuple (``SimpleLSHIndex``, ``RangeLSHIndex``,
 ``SignALSHIndex``, ``L2ALSHIndex``, ``MultiTableIndex``) crosses as its
 fields: :func:`legacy_index_from_fields`.
 
+A training state crosses as the reference's ``TrainState`` with numpy
+leaves: :func:`train_state_from_tree`.
+
 A streaming index crosses as the reference's ``streaming.index_tree``
 (nested dict, each leaf as a numpy array):
 :func:`mutable_index_from_tree` mounts it as a port
@@ -280,3 +283,24 @@ def sharded_index_from_fields(fields: Mapping, spec: Mapping, *,
     return ShardedIndex(
         spec=pspec, **{f: field(f) for f in SHARDED_FIELDS},
         calib=None if calib is None else calibration_from_fields(calib))
+
+
+def train_state_from_tree(tree, *, device=None):
+    """The port's :class:`~repro_torch.launch.train.TrainState` from the
+    reference's ``TrainState`` with numpy leaves (``jax.tree.map(
+    np.asarray, state)``), on ``device`` (the card unless ``device="cpu"``): params as
+    :func:`lm_params_from_tree` carries them, the AdamW step (int32),
+    moments and EF residual bit for bit. Its tree paths are the
+    reference's (``.params/...``, ``.opt/.step``, ``.opt/.mu/...``,
+    ``.ef/.residual/...``), so the two checkpoint managers key it alike."""
+    from repro_torch.launch.train import TrainState
+    from repro_torch.optim.compression import ErrorFeedback
+    from repro_torch.optim.optimizers import AdamWState
+
+    device = resolve_device(device)
+    return TrainState(
+        lm_params_from_tree(tree.params, device=device),
+        AdamWState(_param_tensor(tree.opt.step, device),
+                   lm_params_from_tree(tree.opt.mu, device=device),
+                   lm_params_from_tree(tree.opt.nu, device=device)),
+        ErrorFeedback(lm_params_from_tree(tree.ef.residual, device=device)))

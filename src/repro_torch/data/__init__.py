@@ -1,1 +1,2 @@
-"""Synthetic MIPS datasets drawn on the device."""
+"""Synthetic MIPS datasets drawn on the device, the trainer's token
+corpus and ALS factorization."""

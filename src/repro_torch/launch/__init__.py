@@ -1,1 +1,2 @@
-"""Serving launcher (port of ``repro/launch/serve.py``)."""
+"""Serving and training launchers (ports of ``repro/launch/serve.py``,
+``train.py`` and ``runtime.py``)."""

@@ -1,6 +1,5 @@
 """Encoder-decoder backbone, whisper-small (port of
-``repro/models/encdec.py``; its ``train_loss`` waits for the port's
-training slice).
+``repro/models/encdec.py``).
 
 The audio frontend is a stub, as in the reference: the encoder consumes
 precomputed frame embeddings (B, frames, d). Encoder = bidirectional
@@ -144,6 +143,19 @@ def decoder_forward(p, tokens: torch.Tensor, enc: torch.Tensor,
     caches = attn.AttnCache(torch.stack([c.k for c in caches]),
                             torch.stack([c.v for c in caches]))
     return rms_norm(h, p["final_norm"], cfg.norm_eps), caches
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decoder CE over ``batch``'s tokens/labels/mask given its
+    ``frames`` (B, F, d), through the LM's chunked loss; aux is 0."""
+    from repro_torch.models.lm import chunked_loss
+    enc = encoder_forward(params["encoder"], batch["frames"], cfg)
+    h, _ = decoder_forward(params, batch["tokens"], enc, cfg)
+    loss = chunked_loss(h, params["unembed"], batch["labels"],
+                        batch["mask"], cfg)
+    return loss, {"ce": loss, "aux": torch.zeros(
+        (), dtype=torch.float32, device=loss.device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,

@@ -14,8 +14,13 @@ positions 0..P-1 in each. The encoder-decoder (whisper) dispatches to
 Decode writes every cache in place: attention caches through their
 per-layer views, recurrent states (Mamba, mLSTM, sLSTM) by copying each
 step's new state into the stacked tensors; ``decode_step`` returns the
-caches it was given. Training (``train_loss``/``chunked_loss``) comes
-with the training slice.
+caches it was given.
+
+Training (``train_loss``) runs the stack with each repetition of the
+pattern period under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` on its scanned period body) and the CE over the
+vocabulary in sequence chunks, each recomputed in the backward pass, so
+the (B, S, V) logits are never materialised.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -279,25 +285,109 @@ def mask_padding_logits(logits: torch.Tensor, cfg: ModelConfig
     return torch.where(ids < cfg.vocab, logits, -1e30)
 
 
+def _period(layer: List, h: torch.Tensor, aux: torch.Tensor,
+            positions: torch.Tensor, cfg: ModelConfig, causal: bool):
+    """One repetition of the pattern: positions 0..P-1 on ``h``. Returns
+    (h, aux, the P layers' caches)."""
+    caches = []
+    for i, p in enumerate(layer):
+        h, cache, a = layer_forward(p, h, positions, cfg, i, causal=causal)
+        caches.append(cache)
+        aux = aux + a
+    return h, aux, caches
+
+
+def _period_remat(layer, h, aux, positions, cfg, causal):
+    return _period(layer, h, aux, positions, cfg, causal)[:2]
+
+
 def backbone_forward(params, h: torch.Tensor, positions: torch.Tensor,
-                     cfg: ModelConfig, *, causal: bool = True
-                     ) -> Tuple[torch.Tensor, Tuple, torch.Tensor]:
+                     cfg: ModelConfig, *, causal: bool = True,
+                     remat: bool = False
+                     ) -> Tuple[torch.Tensor, Optional[Tuple], torch.Tensor]:
     """Run the pattern stack. h: (B, S, d). Returns (h, caches, aux):
     caches per pattern position, each stacked over the repetitions (an
     ``AttnCache`` of (reps, B, S, ...) tensors or a recurrent state), the
-    layout of :func:`init_cache`."""
-    P = combined_period(cfg)
+    layout of :func:`init_cache`.
+
+    ``remat=True`` (training) runs each repetition of the period under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward pass, so training keeps O(n_layers / P) boundary states, and
+    no caches are kept (``caches`` is None)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    per_pos: List[List] = [[] for _ in range(P)]
+    per_pos: List[List] = [[] for _ in range(combined_period(cfg))]
     for layer in _layers(params, cfg):
-        for i in range(P):
-            h, cache, a = layer_forward(layer[i], h, positions, cfg, i,
-                                        causal=causal)
+        if remat:
+            h, aux = checkpoint(_period_remat, layer, h, aux, positions, cfg,
+                                causal, use_reentrant=False)
+            continue
+        h, aux, caches = _period(layer, h, aux, positions, cfg, causal)
+        for i, cache in enumerate(caches):
             per_pos[i].append(cache)
-            aux = aux + a
-    caches = tuple(_stack_caches(cs) for cs in per_pos)
+    caches = None if remat else tuple(_stack_caches(cs) for cs in per_pos)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, caches, aux
+
+
+def _chunk_nll(h: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(masked NLL sum, mask sum) of one sequence chunk: f32 logits from
+    f32 copies of h and the unembedding (exact products of bf16 values),
+    soft-capped, the padding rows masked."""
+    logits = h.to(torch.float32) @ unembed.to(torch.float32)
+    if cfg.final_softcap is not None:
+        logits = softcap(logits, cfg.final_softcap)
+    logits = mask_padding_logits(logits, cfg)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def chunked_loss(h: torch.Tensor, unembed: torch.Tensor,
+                 labels: torch.Tensor, mask: torch.Tensor, cfg: ModelConfig,
+                 chunk: int = 512) -> torch.Tensor:
+    """Mean CE over the vocab without materialising (B, S, V) logits: the
+    sequence in chunks (the largest divisor of S up to ``chunk``), each
+    under ``torch.utils.checkpoint`` so its logits are recomputed in the
+    backward pass."""
+    S = h.shape[1]
+    chunk = attn._pick_chunk(S, chunk)   # S may include patch positions
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    denom = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S, chunk):
+        part, m = checkpoint(_chunk_nll, h[:, c:c + chunk], unembed,
+                             labels[:, c:c + chunk], mask[:, c:c + chunk],
+                             cfg, use_reentrant=False)
+        nll = nll + part
+        denom = denom + m
+    return nll / torch.clamp_min(denom, 1.0)
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               *, aux_weight: float = 0.01
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE (+ ``aux_weight`` x the MoE aux loss). batch:
+    tokens/labels (B, S) int, mask (B, S) f32; ``patches`` (B,
+    num_patches, d) for a config with patch embeddings (their positions
+    carry no loss), ``frames`` for the encoder-decoder. Returns (total,
+    {"ce", "aux"})."""
+    if cfg.is_encoder_decoder:
+        return encdec.train_loss(params, batch, cfg)
+    tokens, labels, mask = batch["tokens"], batch["labels"], batch["mask"]
+    B, S = tokens.shape
+    h = _embed(params, tokens, cfg)
+    positions = torch.arange(S, device=tokens.device)
+    if cfg.num_patches:
+        Np = cfg.num_patches
+        h = torch.cat([batch["patches"].to(h.dtype) @ params["patch_proj"],
+                       h], dim=1)
+        positions = torch.arange(Np + S, device=tokens.device)
+        mask = torch.cat([mask.new_zeros((B, Np)), mask], dim=1)
+        labels = torch.cat([labels.new_zeros((B, Np)), labels], dim=1)
+    h, _, aux = backbone_forward(params, h, positions, cfg, remat=True)
+    loss = chunked_loss(h, _unembed_matrix(params, cfg), labels, mask, cfg)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -602,3 +602,106 @@ def test_model_blocks_on_the_card_equal_the_cpu(cuda_device, arch):
     for a, b in zip(*runs):
         assert np.isfinite(b).all()
         np.testing.assert_allclose(b, a, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "granite_moe_1b_a400m",
+                                  "internvl2_1b", "whisper_small"])
+def test_train_steps_on_the_card_equal_the_cpu(cuda_device, arch):
+    """Phase 9's step at ``reduced()`` size: two ``make_train_step`` steps
+    on the card against the CPU from one f32 state (TF32 off), every
+    param, moment and gradient on the card; loss, ce and aux within rtol
+    1e-4, the global norm within 1e-3 (f32 sums in another order; a MoE
+    combine's scatter order is not fixed on the card), params within 1e-5
+    + 1e-2 x the lr summed so far (bf16 compression may round a gradient
+    the other way)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(arch).reduced()
+    hp = train.TrainHParams(lr=1e-3, warmup=1, total_steps=10)
+    state0 = train.init_state(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    state0 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                      state0)
+    corpus = SyntheticCorpus(cfg.vocab, 16, device="cpu")
+    batches = [train.stub_inputs(dict(corpus.sample(s, 0, 2)._asdict()),
+                                 cfg) for s in range(2)]
+    runs = []
+    for dev in ("cpu", cuda_device):
+        # a copy on each device: the step updates params in place
+        state = tree_map(lambda t: t.to(dev, copy=True), state0)
+        step = train.make_train_step(cfg, hp)
+        ms = []
+        for s, b in enumerate(batches):
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()}, s)
+            ms.append({k: float(v) for k, v in m.items()})
+        if dev != "cpu":
+            _, _, grads = train.loss_and_grads(
+                state.params, {k: v.to(dev) for k, v in batches[0].items()},
+                cfg, hp)
+            assert {t.device.type for t in leaves(state)} == {"cuda"}
+            assert {t.device.type for t in leaves(grads)} == {"cuda"}
+        runs.append((ms, [t.float().cpu() for t in leaves(state.params)]))
+    (cpu_m, cpu_p), (gpu_m, gpu_p) = runs
+    for a, b in zip(cpu_m, gpu_m):
+        for k in ("loss", "ce", "aux", "lr"):
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-4, atol=1e-7)
+        np.testing.assert_allclose(b["gnorm"], a["gnorm"], rtol=1e-3)
+    lr_sum = sum(m["lr"] for m in cpu_m)
+    for a, b in zip(cpu_p, gpu_p):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
+                                   atol=1e-5 + 1e-2 * lr_sum)
+
+
+@pytest.mark.cuda
+def test_run_training_resumes_on_the_card(cuda_device, tmp_path):
+    """Two ``make_train_step`` steps on the card saved as step 2: the
+    restore (into a template of other values) equals the saved state bit
+    for bit, on the card. ``run_training`` (no device named) resumes there
+    and saves step 4, whose restore matches the crc32 the save wrote for
+    each leaf."""
+    import zlib
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.launch import train
+    from repro_torch.tree import flatten_with_paths
+
+    def raw(t):
+        return t.detach().reshape(-1).view(torch.uint8)
+
+    cfg = get_config("qwen3_0_6b").reduced()
+    hp = train.TrainHParams(lr=1e-3, warmup=1, total_steps=10)
+    state = train.init_state(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    step = train.make_train_step(cfg, hp)
+    corpus = SyntheticCorpus(cfg.vocab, 16, device=cuda_device)
+    for s in range(2):
+        batch = train.stub_inputs(dict(corpus.sample(s, 0, 2)._asdict()),
+                                  cfg)
+        state, _ = step(state, batch, s)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, state)
+    template = train.init_state(
+        torch.Generator(device=cuda_device).manual_seed(9), cfg)
+    restored = dict(flatten_with_paths(mgr.restore(2, template)))
+    saved = flatten_with_paths(state)
+    assert len(saved) == len(restored)
+    for k, want in saved:
+        got = restored[k]
+        assert got.device.type == "cuda" and got.dtype == want.dtype, k
+        assert torch.equal(raw(got), raw(want)), k
+    seen = []
+    train.run_training(cfg, hp, global_batch=2, seq_len=16, steps=4,
+                       ckpt_dir=str(tmp_path), ckpt_every=2, log_every=1,
+                       on_metrics=lambda s, m: seen.append(s))
+    assert seen == [2, 3]
+    digests = mgr.manifest(4)["leaves"]
+    for k, got in flatten_with_paths(mgr.restore(4, template)):
+        assert got.device.type == "cuda", k
+        crc = zlib.crc32(raw(got).cpu().numpy().tobytes())
+        assert crc == digests.pop(k)["crc32"], k
+    assert not digests

@@ -16,11 +16,13 @@ equal codes asserted here show that this data has no such bit.
 
 Also here: calibration tables (chunked and unchunked) against the
 reference, snapshots mounted across the two packages, the checkpoint
-manager's contract, and the delta buffer's typed errors.
+manager's contract (NamedTuple trees keyed ``.field`` as the reference
+keys them, crossing both ways), and the delta buffer's typed errors.
 """
 
 import json
 import os
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,7 @@ from repro.core import planner as jplanner
 from repro.data.synthetic import make_dataset as jax_dataset
 from repro_torch import convert, streaming
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.tree import flatten_with_paths, tree_map
 from repro_torch.core import planner
 from repro_torch.core.bucket_index import build_buckets
 from repro_torch.core.engine import bucket_candidates, dense_candidates
@@ -638,3 +641,90 @@ def test_checkpoint_crc_and_shape_errors(tmp_path):
     json.dump(man, open(mpath, "w"))
     with pytest.raises(IOError):
         mgr.restore(5, tree)
+
+
+class _Opt(NamedTuple):
+    step: object
+    mu: object
+
+
+class _State(NamedTuple):
+    params: object
+    opt: _Opt
+    pair: tuple
+
+
+def _nt_tree():
+    """Nested NamedTuples around dicts and a plain tuple, bf16 and f32
+    leaves, as a training state nests them (numpy leaves)."""
+    import ml_dtypes
+    rng = np.random.default_rng(4)
+    w = rng.standard_normal((3, 4)).astype(ml_dtypes.bfloat16)
+    return _State(
+        params={"w": w, "blk": {"norm": rng.standard_normal(4).astype(
+            np.float32)}},
+        opt=_Opt(np.asarray(5, np.int32),
+                 {"w": rng.standard_normal((3, 4)).astype(np.float32),
+                  "blk": {"norm": np.zeros(4, np.float32)}}),
+        pair=(np.arange(3, dtype=np.int32), np.ones(2, np.float32)))
+
+
+def _port(tree_np):
+    """A numpy tree as CPU tensors (bf16 bit for bit), NamedTuples and
+    tuples kept."""
+    return tree_map(lambda a: convert._param_tensor(a, "cpu"), tree_np)
+
+
+def _equal_bits(got, want):
+    for (kg, a), (kw, b) in zip(flatten_with_paths(got),
+                                flatten_with_paths(want)):
+        assert kg == kw
+        a = a.view(torch.int16) if a.dtype == torch.bfloat16 else a
+        b = b.view(torch.int16) if b.dtype == torch.bfloat16 else b
+        assert a.dtype == b.dtype and torch.equal(a, b), kg
+
+
+def test_checkpoint_namedtuple_roundtrip_in_the_port(tmp_path):
+    tree = _port(_nt_tree())
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, tree)
+    got = mgr.restore(2, tree)
+    assert type(got) is _State and type(got.opt) is _Opt
+    assert type(got.pair) is tuple
+    _equal_bits(got, tree)
+
+
+def test_checkpoint_namedtuple_leaf_keys_equal_the_reference(tmp_path):
+    tree = _nt_tree()
+    CheckpointManager(str(tmp_path / "port")).save(1, _port(tree))
+    JaxManager(str(tmp_path / "jax")).save(
+        1, jax.tree.map(jnp.asarray, tree))
+    keys = [set(json.load(open(os.path.join(
+        tmp_path, side, "step_000000001", "manifest.json")))["leaves"])
+        for side in ("port", "jax")]
+    assert keys[0] == keys[1] == {
+        ".params/['w']", ".params/['blk']/['norm']", ".opt/.step",
+        ".opt/.mu/['w']", ".opt/.mu/['blk']/['norm']", ".pair/[0]",
+        ".pair/[1]"}
+
+
+def test_checkpoint_namedtuple_reference_save_port_restore(tmp_path):
+    tree = _nt_tree()
+    JaxManager(str(tmp_path)).save(3, jax.tree.map(jnp.asarray, tree))
+    template = tree_map(torch.zeros_like, _port(tree))
+    got = CheckpointManager(str(tmp_path)).restore(3, template)
+    _equal_bits(got, _port(tree))
+
+
+def test_checkpoint_namedtuple_port_save_reference_restore(tmp_path):
+    tree = _nt_tree()
+    CheckpointManager(str(tmp_path)).save(3, _port(tree))
+    template = jax.tree.map(lambda a: jnp.zeros(a.shape, a.dtype), tree)
+    got = JaxManager(str(tmp_path)).restore(3, template)
+    assert type(got) is _State
+    for (k, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(got)[0],
+                              jax.tree_util.tree_flatten_with_path(tree)[0]):
+        assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(
+            np.asarray(a).reshape(-1).view(np.uint8),
+            np.asarray(b).reshape(-1).view(np.uint8))
