@@ -29,14 +29,22 @@ Phases, each fatal on failure:
    a from-scratch rebuild (the port's bucket store and core engines) in
    both arms, candidates are unchanged across ``compact()``, and recall@10
    against ``mips_topk`` over the live set reaches 0.85 over all batches.
-4. Kernels against their plain PyTorch versions on the card, at the
-   shapes the two paths gave them and at the padding-probe shapes:
+4. Kernels against their plain PyTorch versions on the card. First the
+   kernel registry's checks (``repro_torch.analysis.kernelcheck``, K1-K5,
+   fatal on any finding): the reference's padding probes, kernel against
+   plain version, and every launch plan of phases 2 and 3 against the
+   card's limits. Then at the shapes the two paths gave them:
    integer outputs exactly, fused-query and mips_topk values within atol
    1e-4 and rtol 1e-5 (150-term f32 dots summed in another order), ids
    tie-aware. Times are medians of 10 CUDA-event-timed runs after
    warm-up (``ms``); the fused query and mips_topk also get ``ms_cold``,
    each launch timed alone after a 256 MiB write that flushes the 50 MB
-   L2. A kernel's bound counts each input byte it needs once (for the
+   L2, and with it K5 at the path's shape (here and in every later
+   phase's rows): the op's billed cost model, its operations over 67
+   TOP/s and bytes over 3.35 TB/s, at most 105% of ``ms_cold``
+   (``cost_share``); fatal, except for an op that
+   ``kernelcheck.OPEN_K5_FAULTS`` names, whose finding is printed as an
+   open port fault. A kernel's bound counts each input byte it needs once (for the
    fused query: each probed row once, however many queries of the batch
    probe it) and the operations this run's inputs need, over 67 TOP/s,
    or for hash_encode, whose multiplies and adds are rounded apart (no
@@ -226,6 +234,29 @@ Phases, each fatal on failure:
     max/median, the planned width and ms per batch per arm; then kernel
     rows for ``hash_encode`` at 17,770 x 300 x 27 and ``fused_query`` at
     d 300, measured as phase 4's.
+
+11. The analysis layer. The launch counters are zeroed just before
+    ``kernelcheck.run_kernelcheck`` and read right after; every kernel
+    must have launched. Kernelcheck on the card: K1-K3 over every plan of
+    the registry's shape classes and of every launch shape phases 2-10
+    recorded (shared memory against the card's opt-in limit, threads,
+    grid limits, ptxas registers x threads, coverage, merges declared),
+    K4 (the padding probes), K5 (the billed cost model; each class timed
+    cold, the cost's operations over 67 TOP/s and bytes over 3.35 TB/s
+    at most 105% of the time; the paths' shapes had theirs in their
+    rows); a row per kernel, class and build is printed, any finding is
+    fatal. Then ``FlopCounterMode`` over one Qwen3-0.6B
+    ``lm.prefill`` and one ``make_train_step`` step at 8 x 512 (random
+    bf16 weights from a seed, no LSH head) against
+    ``parallel/analytic.estimate``'s matmul and attention terms: the
+    counts, their ratio and the terms the two count differently (no
+    gate). The roofline (``parallel/roofline.py``, the card's data-sheet
+    peaks) of phase 9's three step p50s and phase 7's exact-head decode
+    step: compute and memory terms, ``roofline_fraction`` and the share
+    of the bf16 peak the measured step attains. Last, the dry run's
+    parameter counts, estimates and input stand-ins for all 32 cells of
+    ``configs/`` x ``shape_cells`` on meta parameters: fatal if a tensor
+    leaves ``meta`` or ``torch.cuda.memory_allocated`` moves.
 
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -496,32 +527,6 @@ def held_runs(cum, num_probe: int) -> int:
                .sum())
 
 
-def knuth_codes(n, w, device):
-    import torch
-    i = torch.arange(n * w, dtype=torch.int64, device=device)
-    v = (i * 2654435761 + 12345) & 0xFFFFFFFF
-    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32
-                                                         ).reshape(n, w)
-
-
-def timed_cold(fn, flush, reps: int = 10) -> float:
-    """Median milliseconds of one ``fn()`` launched right after ``flush``
-    is overwritten, so its inputs start outside L2."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        flush.add_(1.0)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def ptxas_report(log: str):
     """(function, registers and shared memory, spills) of each kernel
     function in ``nvcc -Xptxas -v`` output."""
@@ -538,65 +543,25 @@ def ptxas_report(log: str):
     return out
 
 
-def probe_shapes(ops, dev):
-    """The reference's padding probes, kernel against plain version."""
-    import torch
-    x = torch.ones((3, 8), device=dev)
-    A = torch.ones((8, 48), device=dev)
-    got = ops.hash_encode(x, A, impl="cuda")
-    if not torch.equal(got, ops.hash_encode(x, A, impl="ref")):
-        fail("hash_encode probe (L=48): kernel != plain")
-    if bool(((got[:, -1].long() & 0xFFFFFFFF) >> 16).any()):
-        fail("hash_encode probe: pad bits of the last word are set")
-    q, db = knuth_codes(3, 2, dev), knuth_codes(70, 2, dev)
-    if not torch.equal(ops.hamming_scan(q, db, impl="cuda"),
-                       ops.hamming_scan(q, db, impl="ref")):
-        fail("hamming_scan probe (n=70): kernel != plain")
-    sizes = torch.full((3, 4), 2, dtype=torch.int32, device=dev)
-    cum = torch.cat([torch.zeros((3, 1), dtype=torch.int32, device=dev),
-                     torch.cumsum(sizes, 1, dtype=torch.int32)], 1)
-    starts = (17 * torch.arange(12, dtype=torch.int32, device=dev)
-              ).reshape(3, 4)
-    got = ops.bucket_gather(cum, starts, 7, impl="cuda")
-    if got.shape != (3, 7) or not torch.equal(
-            got, ops.bucket_gather(cum, starts, 7, impl="ref")):
-        fail("bucket_gather probe (q=3, s=4, p=7): kernel != plain")
-    queries = torch.ones((3, 4), device=dev)
-    items = torch.arange(32, dtype=torch.float32, device=dev
-                         ).reshape(8, 4) / 32
-    items[0] = 100.0                      # the poison row, never probed
-    cum = torch.tensor([[0, 2, 4]] * 3, dtype=torch.int32, device=dev)
-    starts = torch.tensor([[2, 6], [4, 1], [6, 3]], dtype=torch.int32,
-                          device=dev)
-    pay = torch.ones((8, 4), dtype=torch.int8, device=dev)
-    sc = (2.0 ** torch.arange(8, dtype=torch.float32, device=dev)
-          )[:, None] / 127.0
-    for extra in ({}, {"payload": pay, "scale": sc}):
-        gv, gp = ops.fused_query(queries, cum, starts, items, 4, 4,
-                                 impl="cuda", **extra)
-        wv, wp = ops.fused_query(queries, cum, starts, items, 4, 4,
-                                 impl="ref", **extra)
-        if bool((gp == 0).any()):
-            fail("fused_query probe: an unprobed position surfaced")
-        check_topk("fused_query probe", gp, gv, wp, wv, queries, items)
-    q, b = knuth_codes(3, 1, dev), knuth_codes(21, 1, dev)
-    if not torch.equal(ops.bucket_match(q, b, 32, impl="cuda"),
-                       ops.bucket_match(q, b, 32, impl="ref")):
-        fail("bucket_match probe (b=21): kernel != plain")
-    live = torch.tensor([True, False, True, False, True], device=dev)
-    got = ops.delta_scan(q, b[:5], live, 32, impl="cuda")
-    if not torch.equal(got, ops.delta_scan(q, b[:5], live, 32, impl="ref")) \
-            or bool((got[:, ~live] != -1).any()):
-        fail("delta_scan probe (c=5): kernel != plain or a dead slot "
-             "did not read -1")
-    queries = -3.0 * torch.ones((3, 4), device=dev)
-    items = 1.0 + torch.arange(20, dtype=torch.float32, device=dev
-                               ).reshape(5, 4) / 20
-    gv, gi = ops.mips_topk(queries, items, 5, impl="cuda")
-    wv, wi = ops.mips_topk(queries, items, 5, impl="ref")
-    if bool(((gi < 0) | (gi >= 5)).any()):
-        fail("mips_topk probe: an id outside [0, N) surfaced")
-    check_topk("mips_topk probe", gi, gv, wi, wv, queries, items)
+def registry_checks(dev, label, launched=(), card=None):
+    """``kernelcheck.run_kernelcheck`` on the card: K1-K5 over the kernel
+    registry (the reference's padding probes, kernel against plain
+    version, among them) and K1-K3 over the ``launched`` shapes; fatal on
+    any finding. With ``card``, prints a row per kernel, shape class and
+    variant. Returns the report."""
+    from repro_torch.analysis import kernelcheck
+    from repro_torch.kernels import _build
+    findings, report = kernelcheck.run_kernelcheck(
+        device=dev, probes=True, launched=launched,
+        build_log=_build.build_log)
+    if card is not None:
+        for line in kernelcheck.report_lines(report):
+            print(f"{line} [{card}]")
+    if findings:
+        for f in findings:
+            print(f.format())
+        fail(f"{label}: kernelcheck: {len(findings)} finding(s)")
+    return report
 
 
 def rebuild_candidates(mi, queries, num_probe, engine, match_fn):
@@ -1496,7 +1461,8 @@ def serve_phase(ds, idx, budgets, arms, ops, dev, card):
     index. The launch counters and a dispatch tracker are zeroed just
     before the path and read right after its last call, before any check
     or case input. Returns the path's launch counts and shapes and the
-    kernel cases at the shapes the path gave them."""
+    kernel cases at the shapes the path gave them, and the exact head's
+    decode-step p50 (ms)."""
     import numpy as np
     import torch
     import torch.distributed as tdist
@@ -1856,7 +1822,9 @@ def serve_phase(ds, idx, budgets, arms, ops, dev, card):
             source=src + "hamming.cu",
             replaces="src/repro/kernels/delta_scan.py:58"),
     }
-    return launches, shapes, cases
+    decode_ms = 1e3 * results["exact"]["tracker"].hists[
+        "repro.serve.decode_step"].quantile(0.5)
+    return launches, shapes, cases, decode_ms
 
 
 def model_cfg(arch, layers):
@@ -2496,14 +2464,14 @@ def train_model(arch, batch_size, seq, seed, dev, card):
     torch.cuda.empty_cache()
     checkpoint_round_trip(state, label, card)
     del state
-    return metrics
+    return p50
 
 
 def train_phase(dev, card):
     """Phase 9: Qwen3-0.6B through ``run_training`` with a checkpoint and
     a resume; the restored step is held bit for bit against the digests
     the trainer's save wrote. Then each of ``TRAIN_RUNS`` through
-    ``train_model``."""
+    ``train_model``. Returns each run's step p50 (ms) by arch."""
     import math
     import shutil
     import tempfile
@@ -2595,10 +2563,13 @@ def train_phase(dev, card):
         fail(f"train: loss at step {last} ({losses[last]['loss']}) is not "
              f"below step 0's ({losses[0]['loss']})")
     torch.cuda.empty_cache()
+    step_ms = {}
     for j, (arch, batch_size, seq) in enumerate(TRAIN_RUNS):
-        train_model(arch, batch_size, seq, SEED + 191 + j, dev, card)
+        step_ms[arch] = train_model(arch, batch_size, seq, SEED + 191 + j,
+                                    dev, card)
         torch.cuda.empty_cache()
     print(f"train: phase 9 {time.perf_counter() - t_phase:.1f} s")
+    return step_ms
 
 
 # -- phase 10: ALS embeddings through RANGE-LSH -------------------------------
@@ -2833,6 +2804,159 @@ def als_phase(ops, dev, card):
     return launches, shapes, cases
 
 
+# -- phase 11: the analysis layer --------------------------------------------
+
+
+def count_flops(kind, cfg, shape, counted, est) -> float:
+    """Prints the FLOPs ``FlopCounterMode`` counted against the analytic
+    model's matmul and attention terms at the same shape, with the terms
+    the two count differently; returns counted / analytic."""
+    from repro_torch.parallel import analytic
+    B, S = shape.global_batch, shape.seq_len
+    head = 2.0 * cfg.d_model * cfg.padded_vocab * B * S
+    layers = 2.0 * (est["matmul_active"] - est["embed"]) * B * S
+    attn = analytic._attention_flops(cfg, B, S, "prefill")["impl"]
+    model = est["matmul_flops"] + est["attn_flops"]
+    ratio = counted / model
+    print(f"analysis: {kind} {cfg.name} {B} x {S}: counted {counted:.6e} "
+          f"FLOPs, analytic matmul {est['matmul_flops']:.6e} + attention "
+          f"{est['attn_flops']:.6e} = {model:.6e}, counted / analytic "
+          f"{ratio:.4f}; a forward pass's terms: layers' matmuls "
+          f"{layers:.6e}, the head over every token {head:.6e}, attention "
+          f"{attn:.6e}")
+    return ratio
+
+
+def analysis_phase(ops, dev, card, paths, step_ms, decode_ms):
+    """Phase 11: the analysis layer on the card. Kernelcheck K1-K5 over
+    the registry (probes, plans, ptxas, cold timings against each cost's
+    bound) and K1-K3 over every launch shape of phases 2-10, between
+    zeroed and read launch counters; the FLOPs ``FlopCounterMode`` counts
+    in one Qwen3-0.6B prefill and one train step at 8 x 512 against the
+    analytic model; the roofline of phases 9 and 7's measured steps; the
+    dry run's parameter counts and estimates of all 32 cells on meta
+    parameters, allocating nothing on the card. Returns the path's
+    launches and shapes."""
+    import torch
+    from repro_torch.configs.base import (ARCH_IDS, SHAPES, ShapeConfig,
+                                          get_config, shape_cells)
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import lm
+    from repro_torch.obs.cost import flop_counter_cost
+    from repro_torch.parallel import analytic
+    from repro_torch.parallel.roofline import (card_peaks,
+                                               measured_fraction, roofline)
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(dev)
+    pk = card_peaks(name)
+    print(f"analysis: peaks of {name}: bf16 {pk.bf16_flops:.3e} FLOP/s, "
+          f"f32 {pk.f32_flops:.3e}, HBM {pk.hbm_bytes:.3e} B/s (data sheet,"
+          f" {pk.power_w:.0f} W) [{card}]")
+
+    # -- kernelcheck, between zeroed and read launch counters
+    launched = sorted({k for _, shapes in paths.values() for k in shapes})
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    report = registry_checks(dev, "phase 11", launched, card)
+    torch.cuda.synchronize()
+    launches, shapes = dict(ops.launch_counts), dict(ops.launch_shapes)
+    idle = [k for k in ops.KERNELS if launches[k] == 0]
+    if idle:
+        fail(f"analysis: kernels kernelcheck never launched: {idle}")
+    rows = [r for v in report["kernels"].values() for r in v["classes"]]
+    print(f"analysis: kernelcheck {time.perf_counter() - t:.1f} s, "
+          f"{len(rows)} rows, {report['launch_shapes']} launch shapes of "
+          f"phases 2-10 planned, launches {launches}, highest share of the "
+          f"bound {100 * max(r['ops_share'] for r in rows):.2f}% "
+          f"(operations)")
+
+    # -- FLOPs counted against the analytic model (Qwen3-0.6B, 8 x 512)
+    t = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    pre = ShapeConfig("smoke_prefill", TRAIN_SEQ, TRAIN_BATCH, "prefill")
+    trn = ShapeConfig("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    params, _ = model_params(cfg, SEED + 211, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 212)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                         generator=gen, device=dev)
+    with torch.no_grad():
+        counted = flop_counter_cost(lm.prefill, params, toks, cfg)["flops"]
+    r_pre = count_flops("prefill", cfg, pre, counted,
+                        analytic.estimate(cfg, pre, params, 1))
+    del params
+    torch.cuda.empty_cache()
+    state = train.init_state(gen, cfg, device=dev)
+    batch = dict(SyntheticCorpus(cfg.vocab, TRAIN_SEQ, seed=SEED + 213,
+                                 device=dev).sample(0, 0, TRAIN_BATCH)
+                 ._asdict())
+    step = train.make_train_step(cfg, train.TrainHParams(**TRAIN_HP))
+    counted = flop_counter_cost(step, state, batch, 0)["flops"]
+    r_trn = count_flops("train step", cfg, trn, counted,
+                        analytic.estimate(cfg, trn, state.params, 1))
+    del state, batch
+    torch.cuda.empty_cache()
+    print(f"analysis: counted / analytic: prefill {r_pre:.4f}, train step "
+          f"{r_trn:.4f} ({time.perf_counter() - t:.1f} s)")
+
+    # -- roofline of the measured steps of phases 9 and 7
+    runs = [(arch, ShapeConfig("train", seq, b, "train"), step_ms[arch])
+            for arch, b, seq in TRAIN_RUNS]
+    runs.append((SERVE_ARCH, ShapeConfig("decode", SERVE_MAX_SEQ,
+                                         SERVE_BATCH, "decode"), decode_ms))
+    for arch, shape, ms in runs:
+        mcfg = get_config(arch)
+        est = analytic.estimate(mcfg, shape, dryrun._abstract_params(mcfg),
+                                1)
+        r = roofline(est["flops"], est["hbm_bytes_per_device"], 0.0, 1,
+                     est["model_flops"], card=name)
+        bound_ms = 1e3 * max(r["compute_s"], r["memory_s"])
+        mfu = measured_fraction(est["model_flops"], ms / 1e3, card=name)
+        print(f"analysis: roofline {arch} {shape.kind} {shape.global_batch}"
+              f" x {shape.seq_len}: compute {1e3 * r['compute_s']:.4f} ms, "
+              f"memory {1e3 * r['memory_s']:.4f} ms, bottleneck "
+              f"{r['bottleneck']}, roofline_fraction "
+              f"{r['roofline_fraction']:.4f}; measured step p50 {ms:.3f} ms:"
+              f" bound / measured {bound_ms / ms:.5f}, model FLOPs at "
+              f"{100 * mfu:.3f}% of the bf16 peak [{card}]")
+
+    # -- the dry run's cells on meta parameters: nothing on the card
+    t = time.perf_counter()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    n = 0
+    for arch in ARCH_IDS:
+        mcfg = get_config(arch)
+        params = dryrun._abstract_params(mcfg)
+        if not all(x.is_meta for x in leaves(params)):
+            fail(f"analysis: {arch}'s abstract params left the meta device")
+        pc = dryrun.param_counts(mcfg, params)
+        for cell in shape_cells(arch):
+            est = analytic.estimate(mcfg, SHAPES[cell], params, 1)
+            specs = leaves(dryrun.input_specs(arch, cell))
+            if not all(x.is_meta for x in specs):
+                fail(f"analysis: {arch} {cell} inputs left the meta device")
+            n += 1
+            print(f"analysis: dryrun {arch} {cell}: params "
+                  f"{pc['total']:.0f} (active {pc['active']:.0f}, experts "
+                  f"{pc['expert']:.0f}), flops {est['flops']:.6e}, "
+                  f"model_flops {est['model_flops']:.6e}, hbm bytes "
+                  f"{est['hbm_bytes_per_device']:.6e}, {len(specs)} input "
+                  f"tensors")
+        del params
+    after = torch.cuda.memory_allocated(dev)
+    if n != 32 or after != before:
+        fail(f"analysis: {n} dry-run cells, card memory {before} -> {after}"
+             f" bytes")
+    print(f"analysis: dryrun {n} cells {time.perf_counter() - t:.2f} s, "
+          f"card memory allocated {before} -> {after} bytes")
+    print(f"analysis: phase 11 {time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2843,12 +2967,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.analysis import kernelcheck
     from repro_torch.core import hashing, planner, topk
     from repro_torch.core.engine import (QueryEngine, _directory_order,
                                          _planned_runs, engine_for)
     from repro_torch.core.index import IndexSpec, build
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import _build, ops
+    from repro_torch.parallel.roofline import card_peaks
 
     # every reference product in this script runs in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2959,7 +3085,8 @@ def main() -> int:
                                                                  dev)
 
     # -- 4. kernels against their plain versions ------------------------------
-    probe_shapes(ops, dev)
+    registry_checks(dev, "phase 4", launched=[
+        k for sh in (shapes, stream_shapes) for k in sh])
     qb = ds.queries[:BATCH]
     fam = idx.family
     x = idx.items / idx.upper_eff[idx.range_id][:, None]
@@ -3123,15 +3250,42 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     paths = {"main": (launches, shapes),
              "stream": (stream_launches, stream_shapes)}
+    peaks = card_peaks(torch.cuda.get_device_name(dev))
+
+    def k5_bound(kernel, shape, k, ms, path, row):
+        """K5 at a path's launch shape: the billed cost's shares of the
+        cold time go into ``row``; a finding of an op in
+        ``kernelcheck.OPEN_K5_FAULTS`` (an open port fault, ROADMAP.md
+        section 3) is printed, any other is fatal."""
+        b, found = kernelcheck.path_bound(kernel, shape, k, ms, peaks,
+                                          f"at the {path} path's shape")
+        row["cost_share"] = {key: b[key] for key in (
+            "flops", "hbm_bytes", "bound_ms", "ops_share", "bytes_share")}
+        bshare = ("fits L2" if b["bytes_share"] is None
+                  else f"{100 * b['bytes_share']:.2f}%")
+        print(f"kernelcheck: K5 {kernel} at the {path} path's shape "
+              f"{tuple(shape)}, k {k}: billed {b['flops']:.6e} FLOPs, "
+              f"{b['hbm_bytes']:.6e} bytes, bound {b['bound_ms']:.4f} ms "
+              f"against cold {ms:.4f} ms: share of the bound: operations "
+              f"{100 * b['ops_share']:.2f}%, bytes {bshare} [{smi}]")
+        fault = kernelcheck.OPEN_K5_FAULTS.get(b["op"])
+        for f in found:
+            print(f.format() if fault is None else
+                  f"kernelcheck: open port fault: {f.message} ({fault})")
+        if found and fault is None:
+            fail(f"{kernel}: K5 at the {path} path's shape: {len(found)} "
+                 f"finding(s)")
 
     def compare(cases):
         """Each case's kernel against its plain version, timed and
-        bounded; appends the rows."""
+        bounded; appends the rows. A row timed cold also holds the op's
+        billed cost to K5 at this shape (``k5_bound``)."""
         for name, c in cases.items():
             got, want = c["call"]("cuda"), c["call"]("ref")
             torch.cuda.synchronize()
             kernel = c.get("kernel", name)
             shape = ops.last_shape[kernel]
+            k_out = got[0].shape[1] if isinstance(got, tuple) else 0
             if "check" in c:
                 err, swaps = c["check"](got, want)
             elif name.startswith("fused_query"):
@@ -3152,8 +3306,8 @@ def main() -> int:
             p_ms = timed(lambda: c["call"]("ref"),
                          reps=c.get("plain_reps", 10), warmup=1)
             lib_ms = timed(c["library"]) if "library" in c else None
-            cold_ms = (timed_cold(lambda: c["call"]("cuda"), flush)
-                       if c.get("cold") else None)
+            cold_ms = (kernelcheck.cold_ms(lambda: c["call"]("cuda"),
+                                           flush) if c.get("cold") else None)
             ceil_ms = dev_ms = None
             if "ceiling" in c:
                 fill = torch.empty(c["ceiling"], dtype=torch.int32,
@@ -3183,6 +3337,8 @@ def main() -> int:
                 "library_ms": lib_ms, "parity": "ok"}
             if "op_rate" in c:
                 row["op_rate"] = "no FMA: each multiply and add alone"
+            if cold_ms is not None:
+                k5_bound(kernel, shape, k_out, cold_ms, path, row)
             if "probe_of" in c:       # a probe shape goes inside its row
                 owner = next(r for r in rows if r["name"] == c["probe_of"])
                 owner[name] = {k: row[k] for k in (
@@ -3228,7 +3384,7 @@ def main() -> int:
     del obs_cases
 
     # -- 7. LSH-decode serving at Qwen3-0.6B's width; distributed -------------
-    serve_launches, serve_shapes, serve_cases = serve_phase(
+    serve_launches, serve_shapes, serve_cases, decode_ms = serve_phase(
         ds, idx, budgets, {a: arms[a] for a in ("bucket", "dense")}, ops,
         dev, smi)
     paths["serve"] = (serve_launches, serve_shapes)
@@ -3243,7 +3399,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 9. training at full width --------------------------------------------
-    train_phase(dev, smi)
+    step_ms = train_phase(dev, smi)
     torch.cuda.empty_cache()
 
     # -- 10. ALS embeddings through RANGE-LSH ---------------------------------
@@ -3251,6 +3407,11 @@ def main() -> int:
     paths["als"] = (als_launches, als_shapes)
     compare(als_cases)
     del als_cases
+    torch.cuda.empty_cache()
+
+    # -- 11. the analysis layer -----------------------------------------------
+    paths["analysis"] = analysis_phase(ops, dev, smi, paths, step_ms,
+                                       decode_ms)
     for row in rows:
         row["launches_by_path"] = {p_: runs_[row["kernel"]]
                                    for p_, (runs_, _) in paths.items()}

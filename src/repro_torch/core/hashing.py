@@ -170,6 +170,7 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     product of two f32 values is exact in f64, so only the sum rounds
     (twice, f64 then f32, which differs from one rounding only on a
     2^-29-wide sliver of inputs)."""
+    # repro-lint: allow[R5] an f32 product is exact in f64: one FMA rounding
     return (a.double() * b + c).float()
 
 
@@ -226,6 +227,7 @@ def _xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
     for c in _EXP_P[1:]:
         y = _fma(y, r, c)
     y = _fma(y, r * r, r) + 1.0
+    # repro-lint: allow[R5] 2^m of an integer m, exact in f64 before the cast
     out = y * torch.exp2(m.double()).float()
     return torch.where(out < _TINY, 0.0, out)
 

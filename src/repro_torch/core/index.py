@@ -47,7 +47,9 @@ def index_bits(m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class IndexSpec:
-    """Declarative index description.
+    """Declarative index description, hashable by value (a memo key: lint
+    rule R4 keeps it frozen, with ``tracker`` out of ``__eq__`` and
+    ``__hash__``).
 
     Attributes:
       family:    base hash family ("simple" | "l2_alsh" | "sign_alsh").

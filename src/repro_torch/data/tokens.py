@@ -9,7 +9,7 @@ restarted job resumes the exact stream from the checkpointed step.
 
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple
+from typing import Dict, Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -56,3 +56,19 @@ class SyntheticCorpus:
         while True:
             yield self.sample(step, rank, per_rank_batch)
             step += 1
+
+
+def train_batch_specs(global_batch: int, seq_len: int
+                      ) -> Dict[str, torch.Tensor]:
+    """Stand-ins for a training batch on the ``meta`` device: the
+    reference's shapes and dtypes, nothing allocated."""
+    shape = (global_batch, seq_len)
+    return {"tokens": torch.empty(shape, dtype=torch.int32, device="meta"),
+            "labels": torch.empty(shape, dtype=torch.int32, device="meta"),
+            "mask": torch.empty(shape, dtype=torch.float32, device="meta")}
+
+
+def decode_batch_specs(global_batch: int) -> Dict[str, torch.Tensor]:
+    """Stand-ins for a decode step's tokens and positions on ``meta``."""
+    return {k: torch.empty((global_batch,), dtype=torch.int32, device="meta")
+            for k in ("tokens", "positions")}

@@ -44,7 +44,7 @@ SIGNATURES = {
     "bucket_gather": ("bucket_gather", "repro_bucket_gather",
                       [_P, _P, _P, _I, _I, _I, _P]),
     "fused_query": ("fused_query", "repro_fused_query",
-                    [_P, _P, _P, _P, _I] + [_P] * 8 + [_I] * 8 + [_P]),
+                    [_P, _P, _P, _P, _I] + [_P] * 8 + [_I] * 11 + [_P]),
     "mips_topk": ("mips_topk", "repro_mips_topk",
                   [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _P]),
     # occupancy query, not a launch: blocks per SM at a given k

@@ -37,16 +37,16 @@
 //     atomics); the entries equal to the cut take the lowest slots; the KB
 //     survivors are sorted by rank counting and written to scratch as (score,
 //     slot, position) lists.
-//  2. fq_merge_kernel, one block per query, stages up to kMergeStage list
-//     entries at a time and merges the span lists into the running top-k'
-//     two sorted lists at a time (each entry's new place is its own index
-//     plus a binary search in the other list). The order is (score
-//     descending, slot ascending): on equal phase-1 scores the lower
-//     candidate slot wins, the canonical CSR order, as the Pallas
-//     _iter_topk does; slots are unique, so every merge is exact. It then
-//     rescores the k' survivors on the f32 rows and sorts them by
-//     (rescored value descending, survivor index ascending): equal scores
-//     keep the earlier survivor.
+//  2. fq_merge_kernel, one block per query, stages G span lists at a time
+//     (G from the caller's plan, ops.fused_query_plan) and merges them
+//     into the running top-k' two sorted lists at a time (each entry's
+//     new place is its own index plus a binary search in the other list).
+//     The order is (score descending, slot ascending): on equal phase-1
+//     scores the lower candidate slot wins, the canonical CSR order, as
+//     the Pallas _iter_topk does; slots are unique, so every merge is
+//     exact. It then rescores the k' survivors on the f32 rows and sorts
+//     them by (rescored value descending, survivor index ascending): equal
+//     scores keep the earlier survivor.
 // Slots past the query's take total (cum[q, S]) or past `total` are never
 // candidates; unfilled survivor entries carry NEG = -3e38 at position -1.
 
@@ -71,7 +71,6 @@ constexpr int kLanes = 32 / kRows;          // lanes that end with one row
 constexpr int kSpanBlocks = 4;              // span blocks an SM must hold
 constexpr int kMaxD = 512;                  // query columns in registers
 constexpr int kMergeThreads = 256;
-constexpr int kMergeStage = 2048;           // span-list entries staged at once
 constexpr float kNeg = -3e38f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -497,11 +496,6 @@ fq_merge_kernel(const float* __restrict__ queries,
   }
 }
 
-// span lists the merge kernel stages at once: kMergeStage entries' worth
-int merge_group(int KB, int nspan) {
-  return std::max(1, std::min(nspan, kMergeStage / KB));
-}
-
 template <typename K>
 int set_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -514,11 +508,8 @@ int launch(const void* queries, const void* cum, const void* starts,
            const void* payload, const void* scale, const void* items,
            void* part_val, void* part_slot, void* part_pos, void* part_cnt,
            void* out_vals, void* out_pos, int Q, int S, int d, int total,
-           int kprime, int KB, int nspan, cudaStream_t stream) {
-  const size_t smem1 = sizeof(int) * (2 * (size_t)kSpanP + 3 * (size_t)KB);
-  const int G = merge_group(KB, nspan);
-  const size_t smem2 = sizeof(float) * (6 * (size_t)kprime +
-                                        (3 * (size_t)KB + 1) * G);
+           int kprime, int KB, int nspan, int G, size_t smem1, size_t smem2,
+           cudaStream_t stream) {
   int e = set_smem(fq_span_kernel<T, V, SCALED, WIDE>, smem1);
   if (!e) e = set_smem(fq_merge_kernel<V, WIDE>, smem2);
   if (e) return e;
@@ -544,12 +535,12 @@ int dispatch(bool pairs, const void* queries, const void* cum,
              const void* items, void* part_val, void* part_slot,
              void* part_pos, void* part_cnt, void* out_vals, void* out_pos,
              int Q, int S, int d, int total, int kprime, int KB, int nspan,
-             cudaStream_t s) {
+             int G, size_t smem1, size_t smem2, cudaStream_t s) {
 #define FQ_LAUNCH(V, WIDE)                                                   \
   launch<T, V, SCALED, WIDE>(queries, cum, starts, payload, scale, items,  \
                              part_val, part_slot, part_pos, part_cnt,      \
                              out_vals, out_pos, Q, S, d, total, kprime, KB, \
-                             nspan, s)
+                             nspan, G, smem1, smem2, s)
   if (d > kMaxD) return pairs ? FQ_LAUNCH(2, true) : FQ_LAUNCH(1, true);
   return pairs ? FQ_LAUNCH(2, false) : FQ_LAUNCH(1, false);
 #undef FQ_LAUNCH
@@ -558,15 +549,19 @@ int dispatch(bool pairs, const void* queries, const void* cum,
 }  // namespace
 
 // span: the slots per block the caller planned for (must equal kSpan);
-// the scratch lists are (Q, nspan, KB) and the counts (Q, nspan); a null
-// scale means unit scales (the f32 phase 1 over the rescore rows)
+// the scratch lists are (Q, nspan, KB) and the counts (Q, nspan); the
+// caller's plan (ops.fused_query_plan) also gives G, the span lists the
+// merge stages at once, and each kernel's dynamic shared memory, smem1
+// and smem2 bytes; a null scale means unit scales (the f32 phase 1 over
+// the rescore rows)
 extern "C" int repro_fused_query(
     const void* queries, const void* cum, const void* starts,
     const void* payload, int payload_int8, const void* scale,
     const void* items, void* part_val, void* part_slot, void* part_pos,
     void* part_cnt, void* out_vals, void* out_pos, int Q, int S, int d,
-    int total, int kprime, int span, int KB, int nspan, void* stream) {
-  if (span != kSpan || KB > kSpan || KB > kprime)
+    int total, int kprime, int span, int KB, int nspan, int G, int smem1,
+    int smem2, void* stream) {
+  if (span != kSpan || KB > kSpan || KB > kprime || G < 1)
     return (int)cudaErrorInvalidValue;
   // two values a load when every row starts on a pair
   const uintptr_t row_align = payload_int8 ? 2 : 8;
@@ -577,14 +572,15 @@ extern "C" int repro_fused_query(
     return dispatch<int8_t, true>(pairs, queries, cum, starts, payload,
                                   scale, items, part_val, part_slot,
                                   part_pos, part_cnt, out_vals, out_pos, Q,
-                                  S, d, total, kprime, KB, nspan, s);
+                                  S, d, total, kprime, KB, nspan, G, smem1,
+                                  smem2, s);
   if (scale)
     return dispatch<float, true>(pairs, queries, cum, starts, payload, scale,
                                  items, part_val, part_slot, part_pos,
                                  part_cnt, out_vals, out_pos, Q, S, d, total,
-                                 kprime, KB, nspan, s);
+                                 kprime, KB, nspan, G, smem1, smem2, s);
   return dispatch<float, false>(pairs, queries, cum, starts, payload, scale,
                                 items, part_val, part_slot, part_pos,
                                 part_cnt, out_vals, out_pos, Q, S, d, total,
-                                kprime, KB, nspan, s);
+                                kprime, KB, nspan, G, smem1, smem2, s);
 }

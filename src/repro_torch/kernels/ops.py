@@ -31,13 +31,15 @@ on the card the ``.cuda`` count of an op equals its launches
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.annotations import ANNOTATIONS, KernelAnnotation
 from repro_torch.obs import cost as _cost
 
 IMPLS = ("auto", "cuda", "ref")
@@ -554,17 +556,17 @@ def fused_query(queries: torch.Tensor, cum: torch.Tensor,
             None if scale is None else scale.data_ptr(), items.data_ptr(),
             part_val.data_ptr(), part_slot.data_ptr(), part_pos.data_ptr(),
             part_cnt.data_ptr(), vals.data_ptr(), pos.data_ptr(), Q, S, d,
-            total, kprime, FUSED_SPAN, plan.kb, plan.nspan,
-            shape=(Q, S, d, total, kprime))
+            total, kprime, FUSED_SPAN, plan.kb, plan.nspan, plan.group,
+            plan.span_smem, plan.merge_smem, shape=(Q, S, d, total, kprime))
     return vals[:, :k], pos[:, :k]
 
 
 class FusedPlan(NamedTuple):
     """Launch plan of ``fused_query.cu``: ``nspan`` span blocks per query,
     each keeping its ``kb`` best slots, merged ``group`` lists at a time;
-    scratch lists of shape ``lists``
-    and counts of shape ``counts``; dynamic shared memory of the span and
-    merge kernels in bytes."""
+    scratch lists of shape ``lists`` and counts of shape ``counts``;
+    dynamic shared memory of the span and merge kernels in bytes. The
+    wrapper passes all of it to the launch."""
     nspan: int
     kb: int
     group: int
@@ -589,3 +591,473 @@ def fused_query_plan(Q: int, total: int, d: int, kprime: int) -> FusedPlan:
                          f"the kernel's shared-memory survivor buffer")
     return FusedPlan(nspan, kb, group, (Q, nspan, kb), (Q, nspan),
                      span_smem, merge_smem)
+
+
+# -- launch plans -------------------------------------------------------------
+#
+# Every op's launch as kernelcheck reads it (repro_torch/analysis/
+# kernelcheck.py K1-K3): the stages, their grids, threads and dynamic
+# shared memory. fused_query launches with its plan whole (spans, merge
+# group, both kernels' shared memory), hash_encode and mips_topk with the
+# parts of theirs that the wrappers pass (rows, warps and blocks; items a
+# block and item blocks). The rest is chosen inside a library from the
+# same sizes: hamming.cu's and bucket_gather.cu's grids, the resident
+# hash_encode block's and mips_topk's partial kernel's shared memory.
+# ``packed_scan_plan``, ``bucket_gather_plan``, ``hash_encode_smem`` and
+# ``mips_partial_smem`` restate those choices, because the libraries' C
+# entry points keep the signatures that tools/hamming_variants.py,
+# tools/gather_encode_ab.py and tools/mips_phases.py bind. A restated
+# choice that understated a launch would show on the card: every shape a
+# path launches was launched there and held against its plain version.
+
+H100_SMS = 132            # an H100 SXM's SMs: the plans' count off the card
+MIPS_MIN_BLOCKS = 2       # mips_topk.cu's launch bound, its blocks an SM
+SCAN_THREADS, SCAN_ITEMS, SCAN_QUERIES = 256, 4, 64   # hamming.cu's wide block
+SCAN_HALO = 7             # rows of at most this many items scan narrow
+SCAN_NARROW_THREADS = 128  # each thread of the narrow kernel owns 4 outputs
+GATHER_SPAN, GATHER_THREADS = 2048, 256
+GRID_Y_MAX = 65535
+FUSED_THREADS = 256       # both kernels of fused_query.cu
+MIPS_THREADS, MIPS_MERGE_THREADS = 128, 256
+
+
+class Stage(NamedTuple):
+    """One kernel launch of an op: its ``__global__`` function, grid (x,
+    y, z), threads a block and dynamic shared memory (bytes), and for each
+    grid axis the work axis it splits with the extent a block covers (0:
+    the blocks loop over that axis, a grid-stride walk)."""
+    function: str
+    grid: Tuple[int, int, int]
+    threads: int
+    dynamic_smem: int
+    tiles: Tuple[Tuple[str, int], ...]
+
+
+class LaunchPlan(NamedTuple):
+    """The stages of one op's launch, the size of each work axis they
+    split, and the axes that index the op's result (a first-stage grid
+    axis over any other axis feeds several blocks into one result row)."""
+    stages: Tuple[Stage, ...]
+    extents: Dict[str, int]
+    result_axes: Tuple[str, ...]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-int(a) // int(b))
+
+
+def packed_scan_plan(Q: int, N: int, W: int, live: bool = False
+                     ) -> LaunchPlan:
+    """``hamming.cu``'s launch: the wide design (item tiles of 1,024 by
+    blocks of 64 queries) for rows longer than the halo and W <= 8, except
+    the delta scan; else the narrow one (4 flat outputs a thread)."""
+    if not live and N > SCAN_HALO and 1 <= W <= 8:
+        tile = SCAN_THREADS * SCAN_ITEMS
+        st = Stage("wide_scan_kernel", (_cdiv(N, tile), _cdiv(Q, SCAN_QUERIES),
+                                        1), SCAN_THREADS, 0,
+                   (("items", tile), ("queries", SCAN_QUERIES)))
+        return LaunchPlan((st,), {"items": N, "queries": Q},
+                          ("items", "queries"))
+    per_block = 4 * SCAN_NARROW_THREADS
+    st = Stage("narrow_scan_kernel", (_cdiv(Q * N, per_block), 1, 1),
+               SCAN_NARROW_THREADS, 0, (("outputs", per_block),))
+    return LaunchPlan((st,), {"outputs": Q * N}, ("outputs",))
+
+
+def bucket_gather_plan(Q: int, S: int, P: int) -> LaunchPlan:
+    """``bucket_gather.cu``'s launch: spans of 2,048 slots by queries, the
+    queries past 65,535 walked by the blocks of the grid's y axis."""
+    st = Stage("bucket_gather_kernel",
+               (_cdiv(P, GATHER_SPAN), min(Q, GRID_Y_MAX), 1), GATHER_THREADS,
+               0, (("slots", GATHER_SPAN),
+                   ("queries", 1 if Q <= GRID_Y_MAX else 0)))
+    return LaunchPlan((st,), {"slots": P, "queries": Q},
+                      ("queries", "slots"))
+
+
+def mips_partial_smem(k: int) -> int:
+    """Dynamic shared memory of ``mips_topk.cu``'s partial kernel: the
+    four-slice staging ring, a tile's scores, two k-lists a query, the
+    list counts and a tile's candidate flags."""
+    return 4 * (4 * (MIPS_QUERY_TILE + MIPS_ITEM_TILE) * 16
+                + MIPS_QUERY_TILE * MIPS_ITEM_TILE + 2 * MIPS_QUERY_TILE * k
+                + 4 * MIPS_QUERY_TILE) + MIPS_QUERY_TILE * MIPS_ITEM_TILE
+
+
+def launch_plan(op: str, s: Dict[str, int], device=None) -> LaunchPlan:
+    """The launch plan of ``op`` at the sizes ``s`` (a registry shape
+    class's keys), with the card's SM count and occupancy when ``device``
+    is a CUDA device, else an H100 SXM's (132 SMs, mips_topk at its launch
+    bound of 2 blocks an SM)."""
+    on_card = device is not None and torch.device(device).type == "cuda"
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if on_card else H100_SMS)
+    if op == "hash_encode":
+        N, d, L = s["n"], s["d"], s["L"]
+        W = _cdiv(L, 32)
+        p = hash_encode_plan(N, d, L, sms)
+        if p.layout is None:
+            st = Stage("hash_encode_kernel", (p.blocks, 1, 1), p.warps * 32,
+                       p.smem, (("rows", 0),))
+        else:
+            words = HASH_TILE_LAYOUTS[p.layout][2] // 32
+            st = Stage("hash_encode_tiled_kernel",
+                       (_cdiv(N, p.rows), _cdiv(W, words), 1),
+                       HASH_TILE_THREADS, 0, (("rows", p.rows),
+                                              ("words", words)))
+        return LaunchPlan((st,), {"rows": N, "words": W}, ("rows", "words"))
+    if op == "hamming_scan":
+        return packed_scan_plan(s["q"], s["n"], s["w"])
+    if op == "bucket_match":
+        return packed_scan_plan(s["q"], s["b"], s["w"])
+    if op == "delta_scan":
+        return packed_scan_plan(s["q"], s["c"], s["w"], live=True)
+    if op == "bucket_gather":
+        return bucket_gather_plan(s["q"], s["s"], s["p"])
+    if op == "fused_query":
+        Q, total = s["q"], s["total"]
+        p = fused_query_plan(Q, total, s["d"], plan_kprime(s))
+        return LaunchPlan(
+            (Stage("fq_span_kernel", (p.nspan, Q, 1), FUSED_THREADS,
+                   p.span_smem, (("slots", FUSED_SPAN), ("queries", 1))),
+             Stage("fq_merge_kernel", (Q, 1, 1), FUSED_THREADS, p.merge_smem,
+                   (("queries", 1),))),
+            {"slots": total, "queries": Q}, ("queries",))
+    if op == "mips_topk":
+        Q, N, k = s["q"], s["n"], s["k"]
+        bps = _mips_blocks_per_sm(k) if on_card else MIPS_MIN_BLOCKS
+        per_block, nblk = mips_topk_plan(Q, N, bps, sms)
+        return LaunchPlan(
+            (Stage("mips_partial_kernel", (nblk, _cdiv(Q, MIPS_QUERY_TILE), 1),
+                   MIPS_THREADS, mips_partial_smem(k),
+                   (("items", per_block), ("queries", MIPS_QUERY_TILE))),
+             Stage("mips_merge_kernel", (Q, 1, 1), MIPS_MERGE_THREADS, 0,
+                   (("queries", 1),))),
+            {"items": N, "queries": Q}, ("queries",))
+    raise ValueError(f"launch_plan: unknown op {op!r}")
+
+
+def launch_shape_class(kernel: str, sizes: Tuple[int, ...]
+                       ) -> Tuple[str, Dict[str, int]]:
+    """(op, sizes as a shape class) of a ``launch_shapes`` key."""
+    if kernel == "hash_encode":
+        return kernel, dict(zip(("n", "d", "L"), sizes[:3]))
+    if kernel in ("hamming_scan", "bucket_match", "delta_scan"):
+        rows = {"hamming_scan": "n", "bucket_match": "b", "delta_scan": "c"}
+        return kernel, {"q": sizes[0], rows[kernel]: sizes[1],
+                        "w": sizes[2]}
+    if kernel == "bucket_gather":
+        return kernel, dict(zip(("q", "s", "p"), sizes))
+    if kernel in ("fused_query", "fused_query_int8"):
+        return "fused_query", dict(zip(("q", "s", "d", "total", "kprime"),
+                                       sizes))
+    if kernel == "mips_topk":
+        return kernel, dict(zip(("q", "n", "d", "k"), sizes))
+    raise ValueError(f"launch_shape_class: unknown kernel {kernel!r}")
+
+
+def plan_kprime(s: Dict[str, int]) -> int:
+    """The survivor width of a fused_query shape class (its ``kprime``,
+    else the wrapper's default for its ``k``)."""
+    if "kprime" in s:
+        return int(s["kprime"])
+    k = int(s.get("k", 1))
+    return max(k, min(max(4 * k, 32), int(s["total"])))
+
+
+# -- kernel registry (kernelcheck metadata) -----------------------------------
+#
+# One entry per op, with the reference's keys and shape classes
+# (``repro/kernels/ops.py`` KERNEL_REGISTRY): kernelcheck reads each op's
+# launch plan at every class, bills the same cost model the op's
+# ``_charge`` call bills, and on the card runs the K4 probes (the
+# reference's adversarial padding cases, kernel against plain version)
+# and times the kernel against its cost's bound.
+
+
+def _codes(n: int, w: int, device=None) -> torch.Tensor:
+    """Deterministic code patterns for the probes: the bits of the
+    reference's uint32 ``i * 2654435761 + 12345`` (Knuth's multiplicative
+    hash of the slot index) as int32."""
+    i = torch.arange(n * w, dtype=torch.int64, device=device)
+    v = (i * 2654435761 + 12345) & 0xFFFFFFFF
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32
+                                                         ).reshape(n, w)
+
+
+def _parity_problems(op: str, got, want, *, atol: float = 0.0) -> List[str]:
+    """Kernel-vs-plain comparison under adversarial padding; any mismatch
+    means padded lanes leaked through the wrapper."""
+    import numpy as np
+    g = np.asarray(got.detach().cpu())
+    w = np.asarray(want.detach().cpu())
+    if g.shape != w.shape:
+        return [f"{op}: kernel result shape {g.shape} != plain {w.shape} "
+                f"under unaligned input shapes"]
+    ok = (np.allclose(g, w, atol=atol, rtol=1e-5) if atol
+          else bool((g == w).all()))
+    if not ok:
+        return [f"{op}: kernel/plain parity broke under padding "
+                f"(max abs diff {np.abs(g.astype(np.float32) - w).max()})"]
+    return []
+
+
+def probe_inputs(op: str, device=None) -> List[Tuple[tuple, dict]]:
+    """The (args, kwargs) of each call the op's K4 probe makes, the
+    reference's inputs bit for bit."""
+    def f32(t):
+        return t.to(device=device, dtype=torch.float32)
+
+    if op == "hash_encode":               # L % 32 == 16 padding bits
+        return [((f32(torch.ones(3, 8)), f32(torch.ones(8, 48))), {})]
+    if op == "hamming_scan":              # n far below any tile
+        return [((_codes(3, 2, device), _codes(70, 2, device)), {})]
+    if op == "bucket_match":
+        return [((_codes(3, 1, device), _codes(21, 1, device), 32), {})]
+    if op == "delta_scan":                # dead slots between live ones
+        live = torch.tensor([True, False, True, False, True], device=device)
+        return [((_codes(3, 1, device), _codes(5, 1, device), live, 32),
+                 {})]
+    if op == "bucket_gather":             # 4 runs x 2 items >= 7 slots
+        sizes = torch.full((3, 4), 2, dtype=torch.int32)
+        cum = torch.cat([torch.zeros((3, 1), dtype=torch.int32),
+                         torch.cumsum(sizes, 1, dtype=torch.int32)], 1)
+        starts = (17 * torch.arange(12, dtype=torch.int32)).reshape(3, 4)
+        return [((cum.to(device), starts.to(device), 7), {})]
+    if op == "mips_topk":                 # every real score negative
+        queries = -3.0 * torch.ones((3, 4))
+        items = 1.0 + torch.arange(20, dtype=torch.float32).reshape(5, 4) / 20
+        return [((f32(queries), f32(items), 5), {})]
+    if op == "fused_query":               # the poison row 0, never probed
+        items = torch.arange(32, dtype=torch.float32).reshape(8, 4) / 32
+        items[0] = 100.0
+        args = (f32(torch.ones((3, 4))),
+                torch.tensor([[0, 2, 4]] * 3, dtype=torch.int32,
+                             device=device),
+                torch.tensor([[2, 6], [4, 1], [6, 3]], dtype=torch.int32,
+                             device=device), f32(items), 4, 4)
+        pay = torch.ones((8, 4), dtype=torch.int8, device=device)
+        sc = f32((2.0 ** torch.arange(8, dtype=torch.float32))[:, None]
+                 / 127.0)
+        return [(args, {}), (args, {"payload": pay, "scale": sc})]
+    raise ValueError(f"probe_inputs: unknown op {op!r}")
+
+
+def _probe_calls(op: str, wrapper, device):
+    """(kernel result, plain result, args, kwargs) of each probe call."""
+    for args, kw in probe_inputs(op, device):
+        yield (wrapper(*args, impl="cuda", **kw),
+               wrapper(*args, impl="ref", **kw), args, kw)
+
+
+def _probe_hash_encode(wrapper, device) -> List[str]:
+    """Padding-bit discipline: with every projection positive, unmasked
+    padding bits of the last word would read sign(0) = 1."""
+    problems = []
+    for got, want, _, _ in _probe_calls("hash_encode", wrapper, device):
+        problems += _parity_problems("hash_encode", got, want)
+        if bool(((got[:, -1].long() & 0xFFFFFFFF) >> 16).any()):
+            problems.append(
+                "hash_encode: padding bits of the final packed word are not "
+                "0 (sign(0) leaked into the code)")
+    return problems
+
+
+def _probe_hamming(wrapper, device) -> List[str]:
+    return [p for got, want, _, _ in _probe_calls("hamming_scan", wrapper,
+                                                  device)
+            for p in _parity_problems("hamming_scan", got, want)]
+
+
+def _probe_bucket_match(wrapper, device) -> List[str]:
+    return [p for got, want, _, _ in _probe_calls("bucket_match", wrapper,
+                                                  device)
+            for p in _parity_problems("bucket_match", got, want)]
+
+
+def _probe_delta_scan(wrapper, device) -> List[str]:
+    problems = []
+    for got, want, args, _ in _probe_calls("delta_scan", wrapper, device):
+        live = args[2]
+        problems += _parity_problems("delta_scan", got, want)
+        if bool((got[:, ~live] != -1).any()):
+            problems.append("delta_scan: dead slots did not fuse to the -1 "
+                            "sentinel")
+        if bool((got[:, live] < 0).any()):
+            problems.append("delta_scan: live slots carried the dead-slot "
+                            "sentinel")
+    return problems
+
+
+def _probe_bucket_gather(wrapper, device) -> List[str]:
+    problems = []
+    for got, want, args, _ in _probe_calls("bucket_gather", wrapper, device):
+        problems += _parity_problems("bucket_gather", got, want)
+        if tuple(got.shape) != (args[0].shape[0], args[2]):
+            problems.append("bucket_gather: rows beyond the queries' leaked "
+                            "through the result")
+    return problems
+
+
+def _probe_mips_topk(wrapper, device) -> List[str]:
+    """All real scores strongly negative: an out-of-range item scored 0
+    would win."""
+    problems = []
+    for (gv, gi), (wv, wi), args, _ in _probe_calls("mips_topk", wrapper,
+                                                    device):
+        n = args[1].shape[0]
+        if bool(((gi < 0) | (gi >= n)).any()):
+            problems.append("mips_topk: an id outside [0, N) surfaced in the "
+                            "returned top-k")
+        problems += _parity_problems("mips_topk.ids", gi, wi)
+        problems += _parity_problems("mips_topk.vals", gv, wv, atol=1e-4)
+    return problems
+
+
+def _probe_fused_query(wrapper, device) -> List[str]:
+    """total = 4 probed slots of a 2,048-slot span, and item row 0
+    dominating every real candidate while CSR position 0 is never probed:
+    an unmasked slot would win every query. The int8 call gives the rows
+    scales 2^i apart, so any payload/scale misalignment surfaces."""
+    problems = []
+    for (gv, gp), (wv, wp), _, kw in _probe_calls("fused_query", wrapper,
+                                                  device):
+        tag = "fused_query.int8" if kw else "fused_query"
+        if bool((gp == 0).any()):
+            problems.append(f"{tag}: an unprobed CSR position surfaced in "
+                            f"the returned top-k (padded slots not masked "
+                            f"to NEG)")
+        problems += _parity_problems(f"{tag}.pos", gp, wp)
+        problems += _parity_problems(f"{tag}.vals", gv, wv, atol=1e-4)
+    return problems
+
+
+def _seeded(shape, seed: int, device) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device)
+
+
+def _runs(q: int, s: int, take: int, n: int, device):
+    """(cum, starts) of ``s`` equal runs a query that hold ``take`` slots
+    or more, starts spread over ``n`` rows."""
+    size = take // s + 1
+    cum = (size * torch.arange(s + 1, dtype=torch.int32)).repeat(q, 1)
+    starts = ((997 * torch.arange(q * s, dtype=torch.int64))
+              % max(1, n - size)).to(torch.int32).reshape(q, s)
+    return cum.to(device), starts.to(device)
+
+
+def _inputs_fused(s, device):
+    cum, starts = _runs(s["q"], s["s"], s["total"], s["n"], device)
+    return ((_seeded((s["q"], s["d"]), 1, device), cum, starts,
+             _seeded((s["n"], s["d"]), 2, device)),
+            {"total": s["total"], "k": s["k"], "kprime": s["kprime"]})
+
+
+def _int8_payload(s, device):
+    """fused_query's int8 build: seeded int8 rows and per-row scales."""
+    g = torch.Generator().manual_seed(5)
+    pay = torch.randint(-127, 128, (s["n"], s["d"]), generator=g,
+                        dtype=torch.int8)
+    scale = torch.rand((s["n"], 1), generator=g) / 127.0
+    return {"payload": pay.to(device), "scale": scale.to(device)}
+
+
+@dataclasses.dataclass(frozen=True)
+class RegisteredKernel:
+    """Registry entry of one CUDA op, for analysis only.
+
+    ``entry`` names the C entry point ``_build.function`` loads (the
+    reference's ``pallas_symbol``); ``plan(shapes, device)`` gives the
+    launch plan the wrapper launches with; ``make_inputs(shapes, device)``
+    builds seeded wrapper inputs for one shape class and
+    ``cost_args(shapes)`` positions the class for ``cost_fn``, the very
+    model the op's ``_charge`` call bills; ``probe(wrapper, device)`` runs
+    the K4 padding probes through ``wrapper`` on the card and returns the
+    problems found; ``fma``
+    says whether the kernel's multiply-adds fuse (hash_encode rounds each
+    multiply and add apart, at half the rate); each of ``variants`` is a
+    (label, ``fn(shapes, device)``) whose keyword arguments select another
+    build of the kernel (fused_query's int8 payload)."""
+
+    op: str
+    wrapper: Callable
+    entry: str
+    annotation: KernelAnnotation
+    cost_fn: Callable
+    cost_args: Callable
+    ref_fn: Callable
+    plan: Callable
+    make_inputs: Callable
+    shape_classes: Tuple[Dict[str, int], ...]
+    probe: Optional[Callable] = None
+    fma: bool = True
+    variants: Tuple[Tuple[str, Callable], ...] = ()
+
+
+def _entry(op, wrapper, entry, cost_fn, cost_args, ref_fn, make_inputs,
+           classes, probe, **kw) -> RegisteredKernel:
+    return RegisteredKernel(
+        op=op, wrapper=wrapper, entry=entry, annotation=ANNOTATIONS[op],
+        cost_fn=cost_fn, cost_args=cost_args, ref_fn=ref_fn,
+        plan=functools.partial(launch_plan, op), make_inputs=make_inputs,
+        shape_classes=classes, probe=probe, **kw)
+
+
+KERNEL_REGISTRY: Dict[str, RegisteredKernel] = {
+    "hash_encode": _entry(
+        "hash_encode", hash_encode, "hash_encode", _cost.hash_encode_cost,
+        lambda s: (s["n"], s["d"], s["L"]), _ref.hash_encode_ref,
+        lambda s, dev: ((_seeded((s["n"], s["d"]), 1, dev),
+                         _seeded((s["d"], s["L"]), 2, dev),
+                         _seeded((s["n"],), 3, dev).abs(),
+                         _seeded((s["L"],), 4, dev)), {}),
+        ({"n": 256, "d": 96, "L": 64}, {"n": 128, "d": 1024, "L": 128}),
+        _probe_hash_encode, fma=False),
+    "hamming_scan": _entry(
+        "hamming_scan", hamming_scan, "hamming", _cost.packed_scan_cost,
+        lambda s: (s["q"], s["n"], 32 * s["w"]), _ref.hamming_ref,
+        lambda s, dev: ((_codes(s["q"], s["w"], dev),
+                         _codes(s["n"], s["w"], dev)), {}),
+        ({"q": 64, "n": 2048, "w": 2}, {"q": 8, "n": 512, "w": 8}),
+        _probe_hamming),
+    "mips_topk": _entry(
+        "mips_topk", mips_topk, "mips_topk", _cost.mips_topk_cost,
+        lambda s: (s["q"], s["n"], s["d"], s["k"]), _ref.mips_topk_ref,
+        lambda s, dev: ((_seeded((s["q"], s["d"]), 1, dev),
+                         _seeded((s["n"], s["d"]), 2, dev)), {"k": s["k"]}),
+        ({"q": 8, "n": 1024, "d": 64, "k": 8},
+         {"q": 16, "n": 512, "d": 128, "k": 16}),
+        _probe_mips_topk),
+    "bucket_match": _entry(
+        "bucket_match", bucket_match, "bucket_match", _cost.packed_scan_cost,
+        lambda s: (s["q"], s["b"], 32 * s["w"]), _ref.bucket_match_ref,
+        lambda s, dev: ((_codes(s["q"], s["w"], dev),
+                         _codes(s["b"], s["w"], dev)),
+                        {"hash_bits": 32 * s["w"]}),
+        ({"q": 64, "b": 1024, "w": 2},), _probe_bucket_match),
+    "delta_scan": _entry(
+        "delta_scan", delta_scan, "delta_scan", _cost.packed_scan_cost,
+        lambda s: (s["q"], s["c"], 32 * s["w"]), _ref.delta_scan_ref,
+        lambda s, dev: ((_codes(s["q"], s["w"], dev),
+                         _codes(s["c"], s["w"], dev),
+                         torch.arange(s["c"], device=dev) % 3 != 1),
+                        {"hash_bits": 32 * s["w"]}),
+        ({"q": 64, "c": 256, "w": 2},), _probe_delta_scan),
+    "bucket_gather": _entry(
+        "bucket_gather", bucket_gather, "bucket_gather",
+        _cost.segmented_gather_cost, lambda s: (s["q"], s["p"]),
+        _ref.bucket_gather_ref,
+        lambda s, dev: (_runs(s["q"], s["s"], s["p"], 1 << 20, dev),
+                        {"num_probe": s["p"]}),
+        ({"q": 32, "s": 16, "p": 64},), _probe_bucket_gather),
+    "fused_query": _entry(
+        "fused_query", fused_query, "fused_query", _cost.fused_query_cost,
+        lambda s: (s["q"], s["total"], s["d"], s["k"], s["kprime"]),
+        _ref.fused_query_ref, _inputs_fused,
+        ({"q": 16, "s": 8, "total": 256, "n": 4096, "d": 32, "k": 8,
+          "kprime": 32},
+         {"q": 8, "s": 16, "total": 1024, "n": 16384, "d": 32, "k": 16,
+          "kprime": 64}),
+        _probe_fused_query, variants=(("int8", _int8_payload),)),
+}

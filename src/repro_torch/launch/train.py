@@ -60,6 +60,12 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, *,
     return TrainState(params, adamw_init(params), ef_init(params))
 
 
+def init_state_abstract(cfg: ModelConfig) -> TrainState:
+    """The state's shapes and dtypes on the ``meta`` device, nothing
+    allocated (for the dry run and for checking a checkpoint's layout)."""
+    return init_state(None, cfg, device="meta")
+
+
 def grad_leaves(params) -> Tuple[Any, List[torch.Tensor], Callable]:
     """(the params' tree with every leaf a fresh autograd leaf sharing its
     storage, those leaves in tree order, ``regroup``): ``regroup(xs)``

@@ -32,6 +32,10 @@ from repro_torch.models.common import (PARAM_DTYPE, apply_rope, dense_init,
                                        rms_norm, softcap)
 
 NEG_INF = -1e30
+# flash_attention always skips the kv chunks above the diagonal and outside
+# the local window (the reference's default, REPRO_CAUSAL_SKIP=1, which the
+# port does not read); parallel/analytic.py counts attention FLOPs with it
+CAUSAL_BLOCK_SKIP = True
 
 
 # ---------------------------------------------------------------------------

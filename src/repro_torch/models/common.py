@@ -22,12 +22,25 @@ COMPUTE_DTYPE = torch.bfloat16
 INIT_CHUNK = 1 << 28
 
 
+class MetaGenerator(torch.Generator):
+    """A generator that reports the ``meta`` device, so that the
+    initializers, which create their tensors on their generator's device,
+    build shapes and dtypes and allocate nothing (torch has no meta
+    generator of its own; a meta tensor's draw reads no random state)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def _draw(shape: Tuple[int, ...], dtype, generator: torch.Generator,
           fill) -> torch.Tensor:
     """A ``dtype`` tensor of ``shape`` whose values ``fill`` draws in f32
     (``fill(x)`` returns the values for the f32 tensor ``x``), in slices
-    of at most ``INIT_CHUNK`` elements."""
+    of at most ``INIT_CHUNK`` elements; on ``meta``, the empty tensor."""
     out = torch.empty(shape, dtype=dtype, device=generator.device)
+    if out.is_meta:
+        return out
     flat = out.view(-1)
     for s in range(0, flat.numel(), INIT_CHUNK):
         x = torch.empty(min(INIT_CHUNK, flat.numel() - s),

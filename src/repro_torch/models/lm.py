@@ -38,8 +38,9 @@ from repro_torch.models import encdec
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.common import (PARAM_DTYPE, dense_init, embed_init,
-                                       rms_norm, softcap, swiglu, unstack)
+from repro_torch.models.common import (PARAM_DTYPE, MetaGenerator,
+                                       dense_init, embed_init, rms_norm,
+                                       softcap, swiglu, unstack)
 
 PyTree = Any
 
@@ -211,11 +212,16 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     """Random params drawn from ``generator`` on ``device`` (the card
     unless ``device="cpu"``; the generator must live there): the
     reference's tree, with the layers of each pattern position stacked
-    over the repetitions (the encoder-decoder's: :mod:`encdec`'s tree)."""
+    over the repetitions (the encoder-decoder's: :mod:`encdec`'s tree).
+    With ``generator=None`` and ``device="meta"``, the tree's shapes and
+    dtypes only: nothing is allocated or drawn."""
     device = resolve_device(device)
-    if generator.device.type != device.type:
-        raise ValueError(f"the generator lives on {generator.device}, the "
-                         f"params were asked for {device}")
+    if generator is None and device.type == "meta":
+        generator = MetaGenerator()
+    where = getattr(generator, "device", None)
+    if where is None or where.type != device.type:
+        raise ValueError(f"the generator lives on {where}, the params were "
+                         f"asked for {device}")
     if cfg.is_encoder_decoder:
         return encdec.init_params(generator, cfg)
     P = combined_period(cfg)

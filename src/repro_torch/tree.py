@@ -42,6 +42,23 @@ def flatten_with_paths(tree: Tree, prefix: str = ""
     return [(prefix[1:], tree)]
 
 
+def flatten_with_keys(tree: Tree, prefix: Tuple[str, ...] = ()
+                      ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(keys, leaf) pairs in the reference's order, each path spelled as
+    its ``[str(getattr(p, "key", p)) for p in path]``: the bare dict key,
+    ``[i]`` for a sequence position, ``.name`` for a NamedTuple field."""
+    if isinstance(tree, dict):
+        return [kl for k in sorted(tree)
+                for kl in flatten_with_keys(tree[k], prefix + (str(k),))]
+    if _is_namedtuple(tree):
+        return [kl for name, v in zip(tree._fields, tree)
+                for kl in flatten_with_keys(v, prefix + (f".{name}",))]
+    if isinstance(tree, (list, tuple)):
+        return [kl for i, v in enumerate(tree)
+                for kl in flatten_with_keys(v, prefix + (f"[{i}]",))]
+    return [(prefix, tree)]
+
+
 def unflatten(template: Tree, values: Dict[str, Any], prefix: str = ""
               ) -> Tree:
     """``template``'s structure with each leaf replaced by ``values`` at

@@ -120,3 +120,19 @@ def mismatched_shape_calls(device):
 MISMATCHED = ("hash_encode_A_rows", "hash_encode_tail", "hash_encode_a_tail",
               "fused_query_items_d", "fused_query_cum_rows",
               "fused_query_starts")
+
+
+def reference_dryrun():
+    """``repro.launch.dryrun``, imported without keeping the 512 host
+    devices its first lines ask XLA for (this process's jax keeps its one
+    CPU device: the flag is read when the backend starts, after this)."""
+    import os
+    old = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun
+    finally:
+        if old is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = old
+    return dryrun

@@ -705,3 +705,31 @@ def test_run_training_resumes_on_the_card(cuda_device, tmp_path):
         crc = zlib.crc32(raw(got).cpu().numpy().tobytes())
         assert crc == digests.pop(k)["crc32"], k
     assert not digests
+
+
+@pytest.mark.cuda
+def test_contracts_hold_on_the_card(cuda_device):
+    """The dtype and plan-memo contracts through the entry points on the
+    card, which launch the CUDA kernels there."""
+    from repro_torch.analysis import contracts
+    ops.reset_launch_counts()
+    report = contracts.run_contracts(device=cuda_device)
+    assert [f.format() for f in report.findings] == []
+    assert report.stats["device"] == "cuda"
+    assert report.stats["distributed_plans"] == (
+        report.stats["distributed_classes"]
+        + report.stats["distributed_planned_classes"])
+    for kernel in ("hash_encode", "bucket_match", "delta_scan"):
+        assert ops.launch_counts[kernel] > 0, kernel
+
+
+@pytest.mark.cuda
+def test_lint_kernels_and_contracts_exit_0_on_the_card(cuda_device, capsys):
+    """``python -m repro_torch.analysis.lint --kernels --contracts`` on the
+    card: the probes, timings and contracts run through the kernels."""
+    from repro_torch.analysis import lint
+    assert lint.run(["--kernels", "--contracts"]) == 0
+    out = capsys.readouterr().out
+    assert "contracts: 0 finding(s) on cuda" in out
+    assert "kernelcheck: skipped" not in out
+    assert "0 new finding(s)" in out
