@@ -40,11 +40,12 @@ Phases, each fatal on failure:
    warm-up (``ms``); the fused query and mips_topk also get ``ms_cold``,
    each launch timed alone after a 256 MiB write that flushes the 50 MB
    L2, and with it K5 at the path's shape (here and in every later
-   phase's rows): the op's billed cost model, its operations over 67
+   phase's rows): the kernel's cost model, its operations over 67
    TOP/s and bytes over 3.35 TB/s, at most 105% of ``ms_cold``
-   (``cost_share``); fatal, except for an op that
-   ``kernelcheck.OPEN_K5_FAULTS`` names, whose finding is printed as an
-   open port fault. A kernel's bound counts each input byte it needs once (for the
+   (``cost_share``); fatal on any finding. The cost is the kernel's own
+   work (``RegisteredKernel.kernel_cost``: for mips_topk each item row
+   read once a 64-query tile, where the billed model reads it once a
+   query). A kernel's bound counts each input byte it needs once (for the
    fused query: each probed row once, however many queries of the batch
    probe it) and the operations this run's inputs need, over 67 TOP/s,
    or for hash_encode, whose multiplies and adds are rounded apart (no
@@ -241,7 +242,7 @@ Phases, each fatal on failure:
     the registry's shape classes and of every launch shape phases 2-10
     recorded (shared memory against the card's opt-in limit, threads,
     grid limits, ptxas registers x threads, coverage, merges declared),
-    K4 (the padding probes), K5 (the billed cost model; each class timed
+    K4 (the padding probes), K5 (the kernel's cost model; each class timed
     cold, the cost's operations over 67 TOP/s and bytes over 3.35 TB/s
     at most 105% of the time; the paths' shapes had theirs in their
     rows); a row per kernel, class and build is printed, any finding is
@@ -258,6 +259,30 @@ Phases, each fatal on failure:
     ``configs/`` x ``shape_cells`` on meta parameters: fatal if a tensor
     leaves ``meta`` or ``torch.cuda.memory_allocated`` moves.
 
+12. The mesh. The dry run's Qwen3-0.6B cells (train_4k, prefill_32k,
+    decode_32k) on the 16 x 16 pod mesh start first, each in its own
+    process without the card (``python -m repro_torch.launch.dryrun``: a
+    fake 256-rank group, meta DTensors). The launch counters are zeroed
+    and an NCCL world of one rank is initialised (a ``file://``
+    rendezvous in a temporary directory); on its 1 x 1 mesh: (a) three
+    ``make_train_step`` steps of Qwen3-0.6B at full width, 8 x 512, from
+    one seeded state meshless and placed by ``state_specs``: equal
+    losses, states equal bit for bit, both step times printed; (b) 8
+    requests of 64 prompt tokens and 16 greedy tokens through
+    ``make_prefill``/``make_decode_step`` meshless and with the mesh:
+    equal tokens, both step times printed; (c)
+    ``decode_attention_seq_sharded`` at Qwen3's decode layer shape (B 8,
+    cache 32,768, KV 8, hd 128, H 16; f32) over 4 in-process shards
+    against ``decode_attention``, both timed; (d) the MIPS cell on the pod
+    mesh on the card (2,000,000 x 128 items, L 128, m 256, 1,024 queries,
+    k 10, probe 512; 16 item shards x 16 query shards in process), its
+    ids equal to the kernels' plain versions'; (e) ``elastic_recover`` of
+    a reduced Qwen3 state from a checkpoint under ``build/``, bit for
+    bit. Every kernel of the MIPS cell's path must have launched. Then
+    the dry-run cells' records are read: ok, per-device argument bytes
+    against the card's memory, collectives by op, wire bytes and roofline
+    terms. Fatal on any failure.
+
 The line before the last is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside it, the script exits
@@ -268,6 +293,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -369,6 +395,21 @@ ALS_QUERIES = 1024        # user queries, 16 batches of 64
 ALS_RECALL = 0.85
 ALS_KERNELS = ("hash_encode", "hamming_scan", "bucket_gather",
                "fused_query", "fused_query_int8", "mips_topk")
+# phase 12: the mesh. Qwen3-0.6B at full width on a 1 x 1 card mesh (an
+# NCCL world of one), the sequence-sharded combine at its decode layer's
+# shape, the dry run's Qwen3 cells and the MIPS cell on the pod mesh
+MESH_ARCH = "qwen3_0_6b"
+MESH_TRAIN_STEPS = 3
+MESH_REQUESTS = 8         # (b): requests of 64 prompt + 16 greedy tokens
+MESH_PROMPT = 64
+MESH_TOKENS = 16
+SEQ_SHARDS = 4            # (c): in-process sequence shards
+SEQ_B, SEQ_CACHE, SEQ_KV, SEQ_HD, SEQ_H = 8, 32768, 8, 128, 16
+SEQ_POS = 20000           # the write slot, in shard 2 of 4
+SEQ_ATOL, SEQ_RTOL = 1e-5, 1e-4   # f32, one divide against softmax's
+DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT = 600      # s a dry-run cell's process may take
+MESH_KERNELS = ("hash_encode", "hamming_scan", "bucket_gather")
 MODEL_BATCH = 8           # requests of a generate call
 MODEL_PROMPT = 64         # prompt tokens
 MODEL_STEPS = 16          # greedy tokens a request
@@ -2957,6 +2998,301 @@ def analysis_phase(ops, dev, card, paths, step_ms, decode_ms):
     return launches, shapes
 
 
+# -- phase 12: the mesh -------------------------------------------------------
+
+
+def start_dryrun_cells(out_dir):
+    """The dry run's Qwen3 cells on the pod mesh, each in its own process
+    (``python -m repro_torch.launch.dryrun``; no card: a fake 256-rank
+    group on meta tensors), started together. Returns {cell: process}."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for cell in DRYRUN_CELLS:
+        procs[cell] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             MESH_ARCH, "--shape", cell, "--mesh", "pod", "--out",
+             str(out_dir)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def print_cell(rec, card):
+    """One dry-run record's line: ok, per-device argument bytes against
+    the card's memory, collectives by op, wire bytes, roofline terms."""
+    mem = rec.get("memory_analysis") or {}
+    arg = mem.get("argument_bytes")
+    r = rec["roofline"]
+    c = rec["collectives"]
+    share = "" if arg is None else \
+        f" ({100 * arg / rec['card_bytes']:.3f}% of the card's)"
+    print(f"mesh: dryrun {rec['arch']} {rec['shape']} {rec['mesh']} "
+          f"({rec['chips']} chips): ok {rec['ok']}, run "
+          f"{rec.get('run_s')} s, argument bytes a device {arg}{share}, "
+          f"output bytes {mem.get('output_bytes')}, collectives "
+          f"{rec.get('collective_counts')}, wire bytes a device "
+          f"{c['total_wire_bytes']:.6e}, roofline compute "
+          f"{r['compute_s']:.6e} s, memory {r['memory_s']:.6e} s, "
+          f"collective {r['collective_s']:.6e} s, bottleneck "
+          f"{r['bottleneck']}, fraction {r['roofline_fraction']:.4f} "
+          f"[{rec['card']}; {card}]")
+
+
+def collect_dryrun_cells(procs, out_dir, card):
+    """Waits for :func:`start_dryrun_cells`' processes and prints each
+    record; fatal if a cell failed."""
+    import torch
+    cap = torch.cuda.get_device_properties(0).total_memory
+    for cell, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"mesh: dry-run cell {cell} ran past {DRYRUN_TIMEOUT} s")
+        path = out_dir / f"{MESH_ARCH}__{cell}__pod.json"
+        if proc.returncode != 0 or not path.exists():
+            fail(f"mesh: dry-run cell {cell} exited {proc.returncode}: "
+                 f"{out[-1500:]}")
+        rec = json.loads(path.read_text())
+        if not rec.get("ok"):
+            fail(f"mesh: dry-run cell {cell}: {rec.get('error')}")
+        rec["card_bytes"] = cap
+        print_cell(rec, card)
+
+
+def mesh_train(cfg, mesh, dev, card):
+    """(a): three steps of Qwen3-0.6B at full width, 8 x 512, meshless
+    and on the 1 x 1 mesh from one seeded state: equal losses, states
+    equal bit for bit afterwards."""
+    import torch
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_map
+    hp = train.TrainHParams(**TRAIN_HP)
+    plain = train.init_state(torch.Generator(device=dev).manual_seed(
+        SEED + 301), cfg, device=dev)
+    placed = train.shard_state(tree_map(torch.clone, plain), cfg, mesh)
+    meshless = train.make_train_step(cfg, hp)
+    meshed = train.make_train_step(cfg, hp, mesh=mesh)
+    corpus = SyntheticCorpus(cfg.vocab, TRAIN_SEQ, seed=SEED + 302,
+                             device=dev)
+    times = {"meshless": [], "mesh": []}
+    for step in range(MESH_TRAIN_STEPS):
+        batch = dict(corpus.sample(step, 0, TRAIN_BATCH)._asdict())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain, want = meshless(plain, dict(batch), step)
+        torch.cuda.synchronize()
+        times["meshless"].append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        placed, got = meshed(placed, dict(batch), step)
+        torch.cuda.synchronize()
+        times["mesh"].append(1e3 * (time.perf_counter() - t))
+        if not torch.equal(got["loss"], want["loss"]):
+            fail(f"mesh: train step {step}: loss {float(got['loss'])} on "
+                 f"the mesh, {float(want['loss'])} without")
+        print(f"mesh: train step {step}: loss {float(want['loss']):.6f} "
+              f"both, gnorm {float(want['gnorm']):.6f} / "
+              f"{float(got['gnorm']):.6f}, ms meshless "
+              f"{times['meshless'][-1]:.1f}, mesh {times['mesh'][-1]:.1f} "
+              f"[{card}]")
+    n = equal_bits(train.unshard(placed), plain, "mesh: train state")
+    print(f"mesh: train: {n} state leaves equal bit for bit after "
+          f"{MESH_TRAIN_STEPS} steps; step p50 meshless "
+          f"{statistics.median(times['meshless']):.1f} ms, mesh "
+          f"{statistics.median(times['mesh']):.1f} ms (first step "
+          f"{times['mesh'][0]:.1f} ms: DTensor's sharding rules warm up) "
+          f"[{card}]")
+
+
+def mesh_serve(cfg, mesh, dev, card):
+    """(b): 8 requests of 64 prompt tokens, 16 greedy tokens each,
+    through ``make_prefill``/``make_decode_step`` meshless and with the
+    mesh: the tokens must be equal."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    params, _ = model_params(cfg, SEED + 311, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 312)
+    prompts = torch.randint(0, cfg.vocab, (MESH_REQUESTS, MESH_PROMPT),
+                            generator=gen, device=dev)
+    out, ms = {}, {}
+    for label, kw in (("meshless", {}), ("mesh", {"mesh": mesh})):
+        h, caches = serve.make_prefill(cfg, **kw)(params, prompts)
+        caches = lm.extend_cache(cfg, caches, MESH_PROMPT + MESH_TOKENS)
+        step = serve.make_decode_step(cfg, **kw)
+        nxt = prompts[:, -1]
+        toks, times = [], []
+        for pos in range(MESH_PROMPT, MESH_PROMPT + MESH_TOKENS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = step(params, nxt, caches, pos)
+            nxt = logits[:, :cfg.vocab].argmax(-1)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+            toks.append(nxt)
+        out[label], ms[label] = torch.stack(toks, 1), times
+    if not torch.equal(out["mesh"], out["meshless"]):
+        bad = int((out["mesh"] != out["meshless"]).sum())
+        fail(f"mesh: {bad} of {out['mesh'].numel()} greedy tokens differ "
+             f"on the mesh")
+    print(f"mesh: decode: {MESH_REQUESTS} x {MESH_TOKENS} greedy tokens "
+          f"equal on the mesh; step p50 meshless "
+          f"{statistics.median(ms['meshless']):.1f} ms, mesh "
+          f"{statistics.median(ms['mesh']):.1f} ms (first mesh step "
+          f"{ms['mesh'][0]:.1f} ms) [{card}]")
+    del params
+
+
+def seq_sharded_case(dev, card):
+    """(c): the sequence-sharded combine over 4 in-process shards at
+    Qwen3's decode layer shape against ``decode_attention``, f32."""
+    import torch
+    from repro_torch.core.distributed import InProcessShardGroup
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device=dev).manual_seed(SEED + 321)
+    q = torch.randn((SEQ_B, SEQ_H, SEQ_HD), generator=gen, device=dev)
+    k = torch.randn((SEQ_B, SEQ_CACHE, SEQ_KV, SEQ_HD), generator=gen,
+                    device=dev)
+    v = torch.randn((SEQ_B, SEQ_CACHE, SEQ_KV, SEQ_HD), generator=gen,
+                    device=dev)
+    ks, vs = torch.chunk(k, SEQ_SHARDS, 1), torch.chunk(v, SEQ_SHARDS, 1)
+    group = InProcessShardGroup(SEQ_SHARDS)
+
+    def sharded():
+        return attn.decode_attention_seq_sharded(q, ks, vs, SEQ_POS, group)
+
+    def whole():
+        return attn.decode_attention(q, k, v, SEQ_POS)
+
+    got, want = sharded(), whole()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=SEQ_ATOL, rtol=SEQ_RTOL):
+        fail(f"mesh: the sequence-sharded combine differs from "
+             f"decode_attention by {err}")
+    print(f"mesh: decode_attention_seq_sharded B {SEQ_B}, cache "
+          f"{SEQ_CACHE}, KV {SEQ_KV}, hd {SEQ_HD}, H {SEQ_H} over "
+          f"{SEQ_SHARDS} in-process shards, write slot {SEQ_POS}: max err "
+          f"{err:.3e} (atol {SEQ_ATOL}, rtol {SEQ_RTOL}); {timed(sharded):.4f}"
+          f" ms, decode_attention {timed(whole):.4f} ms [{card}]")
+    del q, k, v, ks, vs
+
+
+def elastic_case(dev, card):
+    """(e): ``elastic_recover`` on the survivors' 1 x 1 slice restores a
+    reduced Qwen3 state from its checkpoint bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import runtime, train
+    cfg = get_config(MESH_ARCH).reduced()
+    state = train.init_state(torch.Generator(device=dev).manual_seed(
+        SEED + 331), cfg, device=dev)
+    template = train.init_state(torch.Generator(device=dev).manual_seed(
+        SEED + 332), cfg, device=dev)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    where = tempfile.mkdtemp(dir=build)
+    try:
+        CheckpointManager(where).save(7, state)
+        t = time.perf_counter()
+        mesh, step, got = runtime.elastic_recover(
+            CheckpointManager(where), template, surviving_slices=1,
+            slice_shape=(1, 1))
+        secs = time.perf_counter() - t
+        if step != 7:
+            fail(f"mesh: elastic_recover restored step {step}, not 7")
+        n = equal_bits(got, state, "mesh: elastic_recover")
+        print(f"mesh: elastic_recover: mesh {tuple(mesh.mesh_dim_names)} "
+              f"{tuple(mesh.shape)}, step {step}, {n} leaves equal bit "
+              f"for bit, {secs:.2f} s [{card}]")
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+
+
+def mesh_phase(ops, dev, card):
+    """Phase 12: the mesh on the card. The dry run's Qwen3 cells start in
+    their own processes; then (a) train and (b) serve Qwen3-0.6B at full
+    width on a 1 x 1 mesh of an NCCL world of one against the meshless
+    steps, (c) the sequence-sharded combine, (d) the MIPS cell on the pod
+    mesh on the card and the cells' records, (e) ``elastic_recover``.
+    The launch counters are zeroed just before and read right after;
+    every kernel of the MIPS cell's path must have launched. Returns the
+    path's launches and shapes."""
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+    out_dir = TRACE_DIR / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = start_dryrun_cells(out_dir)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rdv = tempfile.mkdtemp()
+    tdist.init_process_group("nccl", init_method=f"file://{rdv}/rdv",
+                             rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh()
+        cfg = get_config(MESH_ARCH)
+        t = time.perf_counter()
+        mesh_train(cfg, mesh, dev, card)
+        torch.cuda.empty_cache()
+        print(f"mesh: (a) {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        mesh_serve(cfg, mesh, dev, card)
+        torch.cuda.empty_cache()
+        print(f"mesh: (b) {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        seq_sharded_case(dev, card)
+        torch.cuda.empty_cache()
+        print(f"mesh: (c) {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        rec = dryrun.run_mips_cell("pod", str(out_dir), device=dev,
+                                   check_plain=True)
+        if not rec.get("ok"):
+            fail(f"mesh: the MIPS cell: {rec.get('error')}")
+        print(f"mesh: dryrun MIPS pod ({rec['chips']} chips, "
+              f"{rec['shards']} item x {rec['query_shards']} query shards "
+              f"in process): {rec['num_buckets']} buckets (the reference "
+              f"assumed {2_000_000 // 4}), build {rec['build_s']} s, query "
+              f"{rec['run_s']} s, plain ids equal "
+              f"{rec['plain_ids_equal']}, max err "
+              f"{rec['plain_max_abs_err']:.3e}, collectives "
+              f"{rec['collective_counts']}, wire bytes a device "
+              f"{rec['collectives']['total_wire_bytes']:.6e}, cost "
+              f"counters {rec['cost_counters']}, roofline {rec['roofline']}"
+              f" [{card}]")
+        print(f"mesh: (d) the MIPS cell {time.perf_counter() - t:.1f} s")
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        elastic_case(dev, card)
+        print(f"mesh: (e) {time.perf_counter() - t:.1f} s")
+        torch.cuda.synchronize()
+        launches, shapes = dict(ops.launch_counts), dict(ops.launch_shapes)
+    finally:
+        tdist.destroy_process_group()
+    idle = [k for k in MESH_KERNELS if launches[k] == 0]
+    print(f"launches on the phase-12 path: "
+          f"{ {k: launches[k] for k in ops.KERNELS} }")
+    if idle:
+        fail(f"kernels never launched on the phase-12 path: {idle}")
+    t = time.perf_counter()
+    collect_dryrun_cells(procs, out_dir, card)
+    print(f"mesh: (d) the dry-run cells' wait {time.perf_counter() - t:.1f}"
+          f" s")
+    print(f"mesh: phase 12 {time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2982,6 +3318,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- 1. device and build --------------------------------------------------
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3253,33 +3590,31 @@ def main() -> int:
     peaks = card_peaks(torch.cuda.get_device_name(dev))
 
     def k5_bound(kernel, shape, k, ms, path, row):
-        """K5 at a path's launch shape: the billed cost's shares of the
-        cold time go into ``row``; a finding of an op in
-        ``kernelcheck.OPEN_K5_FAULTS`` (an open port fault, ROADMAP.md
-        section 3) is printed, any other is fatal."""
+        """K5 at a path's launch shape: the kernel's cost's shares of the
+        cold time go into ``row``; any finding is fatal."""
         b, found = kernelcheck.path_bound(kernel, shape, k, ms, peaks,
-                                          f"at the {path} path's shape")
+                                          f"at the {path} path's shape", dev)
         row["cost_share"] = {key: b[key] for key in (
             "flops", "hbm_bytes", "bound_ms", "ops_share", "bytes_share")}
-        bshare = ("fits L2" if b["bytes_share"] is None
+        b_ms = 1e3 * b["hbm_bytes"] / peaks.hbm_bytes
+        bshare = (f"fits L2 ({100 * b_ms / ms:.2f}% of the time at the "
+                  f"memory rate)" if b["bytes_share"] is None
                   else f"{100 * b['bytes_share']:.2f}%")
         print(f"kernelcheck: K5 {kernel} at the {path} path's shape "
-              f"{tuple(shape)}, k {k}: billed {b['flops']:.6e} FLOPs, "
+              f"{tuple(shape)}, k {k}: kernel cost {b['flops']:.6e} FLOPs, "
               f"{b['hbm_bytes']:.6e} bytes, bound {b['bound_ms']:.4f} ms "
               f"against cold {ms:.4f} ms: share of the bound: operations "
               f"{100 * b['ops_share']:.2f}%, bytes {bshare} [{smi}]")
-        fault = kernelcheck.OPEN_K5_FAULTS.get(b["op"])
         for f in found:
-            print(f.format() if fault is None else
-                  f"kernelcheck: open port fault: {f.message} ({fault})")
-        if found and fault is None:
+            print(f.format())
+        if found:
             fail(f"{kernel}: K5 at the {path} path's shape: {len(found)} "
                  f"finding(s)")
 
     def compare(cases):
         """Each case's kernel against its plain version, timed and
         bounded; appends the rows. A row timed cold also holds the op's
-        billed cost to K5 at this shape (``k5_bound``)."""
+        kernel cost to K5 at this shape (``k5_bound``)."""
         for name, c in cases.items():
             got, want = c["call"]("cuda"), c["call"]("ref")
             torch.cuda.synchronize()
@@ -3412,9 +3747,15 @@ def main() -> int:
     # -- 11. the analysis layer -----------------------------------------------
     paths["analysis"] = analysis_phase(ops, dev, smi, paths, step_ms,
                                        decode_ms)
+    torch.cuda.empty_cache()
+
+    # -- 12. the mesh ---------------------------------------------------------
+    paths["mesh"] = mesh_phase(ops, dev, smi)
     for row in rows:
         row["launches_by_path"] = {p_: runs_[row["kernel"]]
                                    for p_, (runs_, _) in paths.items()}
+    print(f"chip_smoke: phases 1-12 {time.perf_counter() - t_start:.1f} s "
+          f"[{smi}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,8 +30,11 @@ sizes ``ops.launch_shapes`` recorded on a path):
   K5  cost: the wrapper's ``_charge`` call bills the registered
       ``cost_fn`` (an AST check). On the card each class (and each
       variant: fused_query's int8 payload) is timed cold, right after a
-      256 MiB write that flushes the L2: the cost's operations over the
-      card's f32 rate (hash_encode, whose multiplies and adds round apart,
+      256 MiB write that flushes the L2: the kernel's cost
+      (``RegisteredKernel.kernel_cost``: the billed model, or mips_topk's
+      own, which reads an item row once a 64-query tile where the billed
+      model reads it once a query) has its operations over the card's f32
+      rate (hash_encode, whose multiplies and adds round apart,
       over half of it) and its bytes over the card's memory rate
       (``parallel.roofline.PEAKS``; an H100 SXM's 67 TFLOP/s and
       3.35 TB/s) must not exceed 105% of the time. A larger share means
@@ -68,16 +71,6 @@ GRID_X_MAX, GRID_YZ_MAX = 2 ** 31 - 1, 65535
 SHARE_LIMIT = 1.05
 FLUSH_BYTES = 256 * 2 ** 20
 COLD_REPS = 10
-
-# K5 at the paths' shapes: the ops whose billed cost is known to overstate
-# the work there, an open port fault each (ROADMAP.md section 3), and why.
-# chip_smoke.py prints their findings and fails on any other.
-OPEN_K5_FAULTS = {
-    "mips_topk": "the op bills the reference's model (obs/cost.py "
-                 "mips_topk_cost: every item row read once a query), kept so "
-                 "that the cost counters equal the reference's; mips_topk.cu "
-                 "reads a row once for each 64-query tile",
-}
 
 HINTS = {
     "K1": "shrink the stage's shared memory or threads, or fix the plan "
@@ -350,13 +343,14 @@ def cold_ms(call, flush, reps: int = COLD_REPS) -> float:
     return statistics.median(times)
 
 
-def bound_row(reg, shapes: Dict[str, int], ms: float, peaks
+def bound_row(reg, shapes: Dict[str, int], ms: float, peaks, device=None
               ) -> Dict[str, Any]:
-    """The cost's bound against a measured time on a card of ``peaks``
+    """The kernel's cost (``reg.kernel_cost`` at ``device``'s launch
+    plan) as a bound against a measured time on a card of ``peaks``
     (``parallel.roofline.Peaks``): operations over its f32 rate (half of
     it without FMA), bytes over its memory rate (no byte share where the
     bytes fit in its L2)."""
-    cost = reg.cost_fn(*reg.cost_args(shapes))
+    cost = reg.kernel_cost(shapes, device)
     rate = peaks.f32_flops if reg.fma else peaks.f32_flops / 2
     ops_ms = 1e3 * cost["flops"] / rate
     bytes_ms = 1e3 * cost["hbm_bytes"] / peaks.hbm_bytes
@@ -388,17 +382,19 @@ def check_k5_bound(reg, label: str, row: Dict[str, Any]) -> List[Finding]:
 
 
 def path_bound(kernel: str, sizes: Tuple[int, ...], k: int, ms: float,
-               peaks, label: str) -> Tuple[Dict[str, Any], List[Finding]]:
-    """K5 at a shape a path launched: ``kernel``'s registered cost at the
-    launch shape ``sizes`` (an ``ops.launch_shapes`` key; ``k``, the
-    results a query, completes fused_query's) against its cold time
-    ``ms`` there. Returns the bound row (with its ``op``) and its
+               peaks, label: str, device=None
+               ) -> Tuple[Dict[str, Any], List[Finding]]:
+    """K5 at a shape a path launched: ``kernel``'s cost at the launch
+    shape ``sizes`` (an ``ops.launch_shapes`` key; ``k``, the results a
+    query, completes fused_query's) against its cold time ``ms`` there on
+    ``device``. Returns the bound row (with its ``op``) and its
     findings."""
     from repro_torch.kernels import ops
     op, shapes = ops.launch_shape_class(kernel, tuple(sizes))
     shapes = {**shapes, "k": int(k)}
     reg = ops.KERNEL_REGISTRY[op]
-    row = {"op": op, "cold_ms": ms, **bound_row(reg, shapes, ms, peaks)}
+    row = {"op": op, "cold_ms": ms,
+           **bound_row(reg, shapes, ms, peaks, device)}
     return row, check_k5_bound(reg, label, row)
 
 
@@ -478,7 +474,7 @@ def run_kernelcheck(registry: Optional[Dict[str, Any]] = None, *,
                         rows.append(row)
                         continue
                     row.update(cold_ms=ms,
-                               **bound_row(reg, shapes, ms, peaks))
+                               **bound_row(reg, shapes, ms, peaks, device))
                     findings += check_k5_bound(
                         reg, f"at {_shape_text(shapes)} {label}".rstrip(),
                         row)

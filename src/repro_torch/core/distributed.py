@@ -98,22 +98,53 @@ class InProcessShardGroup:
         """(size, ...) stack of the members' tensors (one per member)."""
         return torch.stack(list(local))
 
+    def all_reduce(self, local: Sequence[torch.Tensor],
+                   op: str = "sum") -> torch.Tensor:
+        """The elementwise ``op`` ("sum" or "max") of the members' tensors
+        (one per member), the value every member receives."""
+        return _reduce(torch.stack(list(local)), op)
+
+
+def _reduce(stacked: torch.Tensor, op: str) -> torch.Tensor:
+    if op == "sum":
+        return stacked.sum(0)
+    if op == "max":
+        return stacked.amax(0)
+    raise ValueError(f"unknown reduction {op!r}; expected 'sum' or 'max'")
+
 
 class ProcessShardGroup:
-    """The default ``torch.distributed`` group, one member (rank) per
-    process. The caller initializes it (``init_process_group`` with its
-    address, world size and rank)."""
+    """A ``torch.distributed`` group, one member (rank) per process: the
+    default group, or ``group`` (a sub-group, e.g. one dimension of a
+    ``DeviceMesh``: :func:`mesh_shard_group`). The caller initializes the
+    default group (``init_process_group`` with its address, world size
+    and rank)."""
 
-    def __init__(self):
+    def __init__(self, group=None):
         import torch.distributed as dist
         if not dist.is_initialized():
             raise RuntimeError("ProcessShardGroup needs an initialized "
                                "torch.distributed process group")
-        self.size = dist.get_world_size()
-        self.rank = dist.get_rank()
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
 
     def members(self) -> List[int]:
         return [self.rank]
+
+    def all_reduce(self, local: Sequence[torch.Tensor],
+                   op: str = "sum") -> torch.Tensor:
+        """The elementwise ``op`` ("sum" or "max") of every rank's tensor,
+        through one ``all_reduce``."""
+        import torch.distributed as dist
+        ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+        if op not in ops:
+            raise ValueError(f"unknown reduction {op!r}; expected 'sum' or "
+                             f"'max'")
+        (mine,) = local
+        out = mine.contiguous().clone()
+        dist.all_reduce(out, op=ops[op], group=self.group)
+        return out
 
     def all_gather(self, local: Sequence[torch.Tensor]) -> torch.Tensor:
         """(size, ...) tensors of every rank, rank order, through one
@@ -123,8 +154,17 @@ class ProcessShardGroup:
         mine = mine.contiguous()
         out = torch.empty((self.size * mine.shape[0],) + mine.shape[1:],
                           dtype=mine.dtype, device=mine.device)
-        dist.all_gather_into_tensor(out, mine)
+        dist.all_gather_into_tensor(out, mine, group=self.group)
         return out.reshape((self.size,) + tuple(mine.shape))
+
+
+def mesh_shard_group(mesh, name: str) -> ProcessShardGroup:
+    """The shard group of the ranks along dimension ``name`` of a
+    ``DeviceMesh`` that hold this rank's other coordinates; its member is
+    this rank's index along ``name``."""
+    group = ProcessShardGroup(mesh.get_group(name))
+    group.rank = mesh.get_local_rank(name)
+    return group
 
 
 # -- the shard-aligned index ---------------------------------------------------

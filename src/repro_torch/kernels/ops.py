@@ -437,6 +437,20 @@ def mips_topk_plan(Q: int, N: int, blocks_per_sm: int, sms: int
     return per_block, -(-N // per_block)
 
 
+def mips_topk_kernel_cost(q: int, n: int, d: int, k: int, nblk: int
+                          ) -> Dict[str, float]:
+    """The work ``mips_topk.cu`` itself does (the model K5 holds against
+    its cold time; the op bills the reference's ``mips_topk_cost``): each
+    item row read once for each ``MIPS_QUERY_TILE``-query tile, the
+    queries once, the ``nblk`` partial top-k lists of
+    :func:`mips_topk_plan` written and read back, the final lists written;
+    ``2·q·n·d`` FLOPs of dots."""
+    qtiles = -(-q // MIPS_QUERY_TILE)
+    lists = (4 + 4) * q * k                  # f32 values and int32 ids
+    bytes_ = 4 * (n * d * qtiles + q * d) + lists * (2 * nblk + 1)
+    return {"flops": 2.0 * q * n * d, "hbm_bytes": float(bytes_)}
+
+
 _mips_occupancy: Dict[int, int] = {}
 
 
@@ -972,7 +986,10 @@ class RegisteredKernel:
     launch plan the wrapper launches with; ``make_inputs(shapes, device)``
     builds seeded wrapper inputs for one shape class and
     ``cost_args(shapes)`` positions the class for ``cost_fn``, the very
-    model the op's ``_charge`` call bills; ``probe(wrapper, device)`` runs
+    model the op's ``_charge`` call bills; ``kernel_cost_fn`` with
+    ``kernel_cost_args(shapes, device)`` is the kernel's own work where it
+    differs from the billed model (default: ``cost_fn``), the model K5
+    holds against a cold time; ``probe(wrapper, device)`` runs
     the K4 padding probes through ``wrapper`` on the card and returns the
     problems found; ``fma``
     says whether the kernel's multiply-adds fuse (hash_encode rounds each
@@ -993,6 +1010,17 @@ class RegisteredKernel:
     probe: Optional[Callable] = None
     fma: bool = True
     variants: Tuple[Tuple[str, Callable], ...] = ()
+    kernel_cost_fn: Optional[Callable] = None
+    kernel_cost_args: Optional[Callable] = None
+
+    def kernel_cost(self, shapes: Dict[str, int], device=None
+                    ) -> Dict[str, float]:
+        """{flops, hbm_bytes} of the kernel's own work at ``shapes``
+        (``device``: the card whose launch plan it counts, else an
+        H100's)."""
+        if self.kernel_cost_fn is None:
+            return self.cost_fn(*self.cost_args(shapes))
+        return self.kernel_cost_fn(*self.kernel_cost_args(shapes, device))
 
 
 def _entry(op, wrapper, entry, cost_fn, cost_args, ref_fn, make_inputs,
@@ -1028,7 +1056,10 @@ KERNEL_REGISTRY: Dict[str, RegisteredKernel] = {
                          _seeded((s["n"], s["d"]), 2, dev)), {"k": s["k"]}),
         ({"q": 8, "n": 1024, "d": 64, "k": 8},
          {"q": 16, "n": 512, "d": 128, "k": 16}),
-        _probe_mips_topk),
+        _probe_mips_topk, kernel_cost_fn=mips_topk_kernel_cost,
+        kernel_cost_args=lambda s, dev: (
+            s["q"], s["n"], s["d"], s["k"],
+            launch_plan("mips_topk", s, dev).stages[0].grid[0])),
     "bucket_match": _entry(
         "bucket_match", bucket_match, "bucket_match", _cost.packed_scan_cost,
         lambda s: (s["q"], s["b"], 32 * s["w"]), _ref.bucket_match_ref,

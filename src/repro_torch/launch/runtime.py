@@ -1,6 +1,5 @@
-"""Runtime fault tolerance: failure detection and stragglers (port of
-``repro/launch/runtime.py``; its ``elastic_recover``, which rebuilds a
-mesh from surviving pod slices, comes with the mesh).
+"""Runtime fault tolerance: failure detection, stragglers, elastic
+re-mesh (port of ``repro/launch/runtime.py``).
 
 The policies are pure Python, tested against an injected clock:
 
@@ -10,6 +9,13 @@ The policies are pure Python, tested against an injected clock:
   * ``StragglerMonitor`` — per-step deadline tracking; a step exceeding
     ``deadline_s`` is recorded and, past ``max_consecutive`` in a row,
     escalated as a ``StragglerEvent``.
+  * ``elastic_recover`` — the recovery policy: rebuild a mesh from the
+    surviving whole slices (``launch/mesh.make_elastic_mesh``, over the
+    default process group the survivors re-initialised) and restore the
+    latest complete checkpoint into a state template; the caller places
+    it on the new mesh (``train.shard_state``: shardings follow logical
+    rules, not device ids). The data pipeline is counter-based
+    (``data/tokens.py``), so the resumed stream is exact.
 """
 
 from __future__ import annotations
@@ -82,3 +88,18 @@ class StragglerMonitor:
                 raise StragglerEvent(step_no, elapsed)
         else:
             self._consecutive = 0
+
+
+def elastic_recover(ckpt_manager, state_template, *, surviving_slices: int,
+                    slice_shape=(16, 16), device_type: str = "cuda"):
+    """Rebuild the mesh from surviving slices and restore the latest
+    checkpoint. Returns (mesh', step, state'), state' restored into
+    ``state_template``'s structure, dtypes and devices."""
+    from repro_torch.launch.mesh import make_elastic_mesh
+
+    mesh = make_elastic_mesh(surviving_slices, slice_shape,
+                             device_type=device_type)
+    step = ckpt_manager.latest_step()
+    if step is None:
+        raise RuntimeError("no checkpoint to recover from")
+    return mesh, step, ckpt_manager.restore(step, state_template)

@@ -1,13 +1,18 @@
 """Serving launcher: prefill / decode steps and a batched greedy server
-(port of ``repro/launch/serve.py``, on one device).
+(port of ``repro/launch/serve.py``).
 
 ``make_decode_step`` returns a one-token decoding function with an
 optional LSH-decode head: RANGE-LSH over the unembedding
 (models/lm_head.py) returning approximate top-k tokens instead of the full
-(B, V) logits — the paper's technique in the serving path. The reference
-jits the step with explicit shardings over a mesh; the port runs eagerly
-on one device and has no mesh (its sharded head runs over a shard group,
-:mod:`repro_torch.core.distributed`).
+(B, V) logits — the paper's technique in the serving path. Without a mesh
+it runs eagerly on the params' device. With a ``DeviceMesh``
+(``launch/mesh.py``) the params are DTensors placed by the stationary
+serve specs (pure TP; ``fsdp_axis`` adds FSDP for models above
+``FSDP_SERVE_THRESHOLD`` parameters) and the caches are sharded sequence
+on ``model``: each attention layer combines its shards' partial
+softmaxes (``attention.decode_attention_seq_sharded``), never gathering
+a cache. The sharded LSH head runs over a shard group
+(:mod:`repro_torch.core.distributed`).
 
 ``BatchedServer`` is a small request loop: prefills a batch, then
 greedy-decodes it through whichever head is mounted — exact, LSH dense,
@@ -34,11 +39,32 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm, lm_head
 from repro_torch.obs.trace import span_or_null
 from repro_torch.obs.tracker import resolve_tracker
+from repro_torch.tree import leaves
 
 
-def make_decode_step(cfg: ModelConfig, *, lsh_decode: bool = False,
-                     topk: int = 8, num_probe: int = 1024,
-                     vocab_meta=None, engine: str = "dense",
+FSDP_SERVE_THRESHOLD = 2e10  # params above this serve with FSDP+TP
+MODEL_AXIS = "model"
+
+
+def param_count(params) -> int:
+    return sum(x.numel() for x in leaves(params))
+
+
+def serve_fsdp_axis(params) -> Optional[str]:
+    return "data" if param_count(params) > FSDP_SERVE_THRESHOLD else None
+
+
+def _full(x):
+    """A DTensor gathered whole (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def make_decode_step(cfg: ModelConfig, *, mesh=None,
+                     fsdp_axis: Optional[str] = None,
+                     lsh_decode: bool = False, topk: int = 8,
+                     num_probe: int = 1024, vocab_meta=None,
+                     engine: str = "dense",
                      return_hidden: bool = False) -> Callable:
     """Returns ``fn(params, tokens, caches, pos[, vidx_arrays])``.
 
@@ -49,14 +75,17 @@ def make_decode_step(cfg: ModelConfig, *, lsh_decode: bool = False,
     dict(codes, range_id, upper, A); ``engine="bucket"`` additionally
     expects the CSR bucket-store arrays (item_ids, bucket_start,
     bucket_rid, bucket_code, rank; see ``bucket_arrays``). Otherwise full
-    (B, V) logits. The caches are written in place."""
+    (B, V) logits. The caches are written in place.
 
-    def step(params, tokens, caches, cache_pos, vidx_arrays=None):
-        mode = "none" if (lsh_decode or return_hidden) else "full"
-        out, new_caches = lm.decode_step(params, tokens, caches, cache_pos,
-                                         cfg, logits_mode=mode)
-        if return_hidden or not lsh_decode:
-            return out, new_caches
+    With ``mesh`` the params are placed by the stationary serve specs
+    (``fsdp_axis=None``) or FSDP + TP (``fsdp_axis="data"``), the caches
+    by ``cache_specs`` (sequence on ``model``) and the tokens on the dp
+    axes, each unless it is a DTensor placed so already; ``pos`` is a
+    host int. The step returns plain logits (or hidden state, or the
+    head's top-k, which runs on the gathered hidden state and
+    unembedding) and the placed caches, which the next step takes."""
+
+    def head(params, out, vidx_arrays):
         from repro_torch.core.bucket_index import BucketIndex
 
         index = lm_head.VocabIndex(
@@ -69,23 +98,79 @@ def make_decode_step(cfg: ModelConfig, *, lsh_decode: bool = False,
                 vidx_arrays["item_ids"], vidx_arrays["bucket_start"],
                 vidx_arrays["bucket_rid"], vidx_arrays["bucket_code"],
                 vidx_arrays["rank"], vocab_meta[1], vocab_meta[2])
-        vals, ids = lm_head.lsh_topk_tokens(
-            index, out, lm._unembed_matrix(params, cfg), k=topk,
+        return lm_head.lsh_topk_tokens(
+            index, out, _full(lm._unembed_matrix(params, cfg)), k=topk,
             num_probe=num_probe, final_softcap=cfg.final_softcap,
             buckets=buckets)
-        return (vals, ids), new_caches
 
-    return step
+    mode = "none" if (lsh_decode or return_hidden) else "full"
+
+    def step(params, tokens, caches, cache_pos, vidx_arrays=None):
+        out, new_caches = lm.decode_step(params, tokens, caches, cache_pos,
+                                         cfg, logits_mode=mode)
+        if return_hidden or not lsh_decode:
+            return out, new_caches
+        return head(params, out, vidx_arrays), new_caches
+
+    if mesh is None:
+        return step
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import ambient_mesh
+    from repro_torch.parallel import sharding as shd
+    pspecs = shd.param_specs(lm.init_params(None, cfg, device="meta"), cfg,
+                             fsdp_axis=fsdp_axis,
+                             serve_stationary=fsdp_axis is None)
+    cspecs = shd.cache_specs(cfg, mesh)
+    tspec = shd.Spec(shd.dp_axes(mesh))
+
+    def mesh_step(params, tokens, caches, cache_pos, vidx_arrays=None):
+        params = shd.to_shardings(mesh, pspecs, params)
+        caches = shd.to_shardings(mesh, cspecs, caches)
+        tokens = shd.distribute(tokens, mesh, tspec)
+        with ambient_mesh(mesh), implicit_replication():
+            out, new_caches = lm.decode_step(
+                params, tokens, caches, int(cache_pos), cfg,
+                seq_axis=MODEL_AXIS, logits_mode=mode)
+            out = _full(out)
+            if return_hidden or not lsh_decode:
+                return out, new_caches
+            return head(params, out, vidx_arrays), new_caches
+
+    return mesh_step
 
 
-def make_prefill(cfg: ModelConfig) -> Callable:
+def make_prefill(cfg: ModelConfig, *, mesh=None,
+                 fsdp_axis: Optional[str] = None) -> Callable:
     """Returns ``fn(params, tokens, patches=None)`` -> (last hidden,
-    caches)."""
+    caches). With ``mesh`` the params are placed by the serve param specs
+    (TP, ``fsdp_axis`` for FSDP) and the tokens on the dp axes; the
+    hidden state and caches come back as DTensors."""
 
     def fn(params, tokens, patches=None):
         return lm.prefill(params, tokens, cfg, patches)
 
-    return fn
+    if mesh is None:
+        return fn
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import ambient_mesh
+    from repro_torch.parallel import sharding as shd
+    pspecs = shd.param_specs(lm.init_params(None, cfg, device="meta"), cfg,
+                             fsdp_axis=fsdp_axis)
+    dp = shd.dp_axes(mesh)
+
+    def mesh_fn(params, tokens, patches=None):
+        params = shd.to_shardings(mesh, pspecs, params)
+        tokens = shd.distribute(tokens, mesh, shd.Spec(dp, None))
+        if patches is not None:
+            patches = shd.distribute(patches, mesh, shd.Spec(dp, None, None))
+        with ambient_mesh(mesh), implicit_replication():
+            return lm.prefill(params, tokens, cfg, patches)
+
+    return mesh_fn
 
 
 def bucket_arrays(buckets) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Training launcher: the train step and a restartable loop (port of
-``repro/launch/train.py``) on one device.
+``repro/launch/train.py``), on one device or over a mesh.
 
 ``make_train_step`` builds ``step(state, batch, step_no)``: the autograd
 of ``lm.train_loss`` (each repetition of the layer period and each loss
@@ -11,10 +11,18 @@ AdamW with f32 moments, which updates the params in place.
 async checkpoints every N steps, restart from the latest one, and the
 straggler deadline monitor (launch/runtime.py).
 
+With a ``DeviceMesh`` (``launch/mesh.py``) the state is a tree of
+DTensors placed by :func:`state_specs` (params, moments and residuals
+FSDP x TP by ``parallel/sharding.param_specs``, or ZeRO over every mesh
+axis with ``zero_dp``) and the batch on the dp axes; each gradient is
+brought to its param's placement (the reduce-scatter) before the clip.
+The residual stream is anchored batch-leading
+(``sharding.constrain_batch_leading``).
+
 The state's trees have the reference's tree paths (``TrainState``,
 ``AdamWState`` and ``ErrorFeedback`` field names, the params' dict
 keys), so a checkpoint written by either package restores into the
-other. There is no mesh: no shardings, no ZeRO axes, no donation.
+other. There is no donation: the step updates the state in place.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from repro_torch.optim.compression import (ErrorFeedback, bf16_compress,
 from repro_torch.optim.optimizers import (AdamWState, adamw_init,
                                           adamw_update, clip_by_global_norm,
                                           cosine_schedule)
-from repro_torch.tree import flatten_with_paths, unflatten
+from repro_torch.tree import flatten_with_paths, tree_map, unflatten
 
 
 class TrainState(NamedTuple):
@@ -105,10 +113,70 @@ def apply_grads(state: TrainState, grads, lr, hp: TrainHParams
     return TrainState(params, opt, ef), gnorm
 
 
-def make_train_step(cfg: ModelConfig, hp: TrainHParams) -> Callable:
+def state_specs(state: TrainState, cfg: ModelConfig,
+                fsdp_axis: Optional[str] = "data", *,
+                zero_dp: bool = False, mesh=None) -> TrainState:
+    """The state's Spec tree: the params' (``sharding.param_specs``, or
+    ``zero_dp_specs`` over ``mesh``) for the params, the AdamW moments
+    and the residuals, the step count replicated."""
+    from repro_torch.parallel import sharding as shd
+    if zero_dp:
+        pspecs = shd.zero_dp_specs(state.params, mesh)
+    else:
+        pspecs = shd.param_specs(state.params, cfg, fsdp_axis=fsdp_axis)
+    return TrainState(params=pspecs, opt=AdamWState(shd.Spec(), pspecs,
+                                                    pspecs),
+                      ef=ErrorFeedback(pspecs))
+
+
+def batch_specs(cfg: ModelConfig, mesh, zero_dp: bool = False
+                ) -> Dict[str, Any]:
+    """A train batch's Specs: the batch over the dp axes (every mesh axis
+    with ``zero_dp``)."""
+    from repro_torch.parallel import sharding as shd
+    names = tuple(mesh.mesh_dim_names)
+    dp = (tuple(a for a in ("pod", "data", "model") if a in names)
+          if zero_dp else shd.dp_axes(mesh))
+    specs = {k: shd.Spec(dp, None) for k in ("tokens", "labels", "mask")}
+    if cfg.num_patches:
+        specs["patches"] = shd.Spec(dp, None, None)
+    if cfg.is_encoder_decoder:
+        specs["frames"] = shd.Spec(dp, None, None)
+    return specs
+
+
+def shard_state(state: TrainState, cfg: ModelConfig, mesh, *,
+                fsdp_axis: Optional[str] = "data",
+                zero_dp: bool = False) -> TrainState:
+    """``state`` as DTensors on ``mesh`` placed by :func:`state_specs`."""
+    from repro_torch.parallel import sharding as shd
+    return shd.to_shardings(mesh, state_specs(state, cfg, fsdp_axis,
+                                              zero_dp=zero_dp, mesh=mesh),
+                            state)
+
+
+def unshard(tree):
+    """A tree with every DTensor gathered whole (for checkpoints and
+    comparisons)."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                    else x, tree)
+
+
+def make_train_step(cfg: ModelConfig, hp: TrainHParams, *, mesh=None,
+                    fsdp_axis: Optional[str] = "data",
+                    zero_dp: bool = False) -> Callable:
     """``step(state, batch, step_no) -> (state, metrics)``, metrics
     ``loss``, ``ce``, ``aux``, ``gnorm`` and ``lr`` as 0-d tensors. The
-    params and moments of ``state`` are updated in place."""
+    params and moments of ``state`` are updated in place.
+
+    With ``mesh`` the state is placed by :func:`state_specs` and the batch
+    by :func:`batch_specs` (each leaf unless it is a DTensor placed so
+    already: place the state once with :func:`shard_state` and pass the
+    returned state on); ``zero_dp`` is pure ZeRO data parallelism (the
+    batch over every mesh axis, each weight over ('data', 'model')), only
+    valid when the global batch divides the mesh. The metrics come back
+    as plain tensors."""
     lr_fn = cosine_schedule(hp.lr, hp.warmup, hp.total_steps)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], step_no):
@@ -118,7 +186,40 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams) -> Callable:
         return state, {"loss": loss, "ce": metrics["ce"],
                        "aux": metrics["aux"], "gnorm": gnorm, "lr": lr}
 
-    return step
+    if mesh is None:
+        return step
+
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import ambient_mesh
+    from repro_torch.parallel import sharding as shd
+    bspecs = batch_specs(cfg, mesh, zero_dp)
+
+    def to_param(g, p):
+        if isinstance(g, DTensor) and tuple(g.placements) != tuple(
+                p.placements):
+            return g.redistribute(p.device_mesh, p.placements)
+        return g
+
+    def mesh_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                  step_no):
+        shd.ZERO_DP_ANCHOR = zero_dp
+        state = shard_state(state, cfg, mesh, fsdp_axis=fsdp_axis,
+                            zero_dp=zero_dp)
+        batch = {k: shd.distribute(v, mesh, bspecs[k])
+                 for k, v in batch.items()}
+        with ambient_mesh(mesh), implicit_replication():
+            loss, metrics, grads = loss_and_grads(state.params, batch, cfg,
+                                                  hp)
+            grads = tree_map(to_param, grads, state.params)
+            lr = lr_fn(step_no)
+            state, gnorm = apply_grads(state, grads, lr, hp)
+        return state, unshard({"loss": loss, "ce": metrics["ce"],
+                               "aux": metrics["aux"], "gnorm": gnorm,
+                               "lr": lr})
+
+    return mesh_step
 
 
 def stub_inputs(batch: Dict[str, torch.Tensor], cfg: ModelConfig
@@ -142,11 +243,13 @@ def run_training(cfg: ModelConfig, hp: TrainHParams, *, global_batch: int,
                  step_deadline_s: Optional[float] = None,
                  log_every: int = 10, seed: int = 0,
                  on_metrics: Optional[Callable[[int, Dict], None]] = None,
-                 device=None) -> Dict[str, float]:
+                 device=None, mesh=None) -> Dict[str, float]:
     """Restartable training loop on ``device`` (the card unless
     ``device="cpu"``): resumes from the latest checkpoint in ``ckpt_dir``
     and runs steps up to ``steps``, saving every ``ckpt_every`` steps.
-    Returns the last step's metrics as floats."""
+    With ``mesh`` the state is placed by :func:`state_specs` and each
+    checkpoint holds the gathered state. Returns the last step's metrics
+    as floats."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.data.tokens import SyntheticCorpus
     from repro_torch.launch.runtime import StragglerMonitor
@@ -163,7 +266,9 @@ def run_training(cfg: ModelConfig, hp: TrainHParams, *, global_batch: int,
             state = mgr.restore(latest, state)
             start_step = latest
 
-    train_step = make_train_step(cfg, hp)
+    train_step = make_train_step(cfg, hp, mesh=mesh)
+    if mesh is not None:
+        state = shard_state(state, cfg, mesh)
     corpus = SyntheticCorpus(cfg.vocab, seq_len, seed=seed, device=device)
     monitor = StragglerMonitor(deadline_s=step_deadline_s)
     metrics = {}
@@ -176,7 +281,7 @@ def run_training(cfg: ModelConfig, hp: TrainHParams, *, global_batch: int,
         if on_metrics and (s % log_every == 0 or s == steps - 1):
             on_metrics(s, metrics)
         if mgr and (s + 1) % ckpt_every == 0:
-            mgr.save_async(s + 1, state)
+            mgr.save_async(s + 1, state if mesh is None else unshard(state))
     if mgr:
         mgr.wait()
     return metrics

@@ -126,3 +126,113 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = (logz - gold) * mask
     return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def split_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(..., n_heads * hd) -> (..., n_heads, hd). A DTensor sharded along
+    its last dimension over a number of ranks that does not divide
+    ``n_heads`` (12 heads on a 16-wide ``model`` axis) is replicated on
+    those mesh dimensions first: a head is never split across ranks."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(t, DTensor):
+        last = Shard(t.dim() - 1)
+        n = 1
+        for dim, pl in enumerate(t.placements):
+            if pl == last:
+                n *= t.device_mesh.size(dim)
+        if n > 1 and n_heads % n:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if pl == last else pl for pl in t.placements])
+    return t.reshape(t.shape[:-1] + (n_heads, t.shape[-1] // n_heads))
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., n_heads, hd) -> (..., n_heads * hd). On a DTensor the result
+    passes through a ``redistribute`` to its own placements: a no-op
+    forward, whose backward brings the gradient back to those placements
+    before the reshape's, so a gradient sharded along the merged
+    dimension is never split into heads unevenly; heads sharded over more
+    ranks than divide them, a sharded head width and partial sums are
+    replicated first (the inverse of :func:`split_heads`)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(t, DTensor):
+        heads, width = Shard(t.dim() - 2), Shard(t.dim() - 1)
+        n = 1
+        for dim, pl in enumerate(t.placements):
+            if pl == heads:
+                n *= t.device_mesh.size(dim)
+        uneven = n > 1 and t.shape[-2] % n
+
+        def whole(pl):
+            return (pl.is_partial() or pl == width
+                    or (uneven and pl == heads))
+        if any(whole(pl) for pl in t.placements):
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if whole(pl) else pl for pl in t.placements])
+    out = t.reshape(t.shape[:-2] + (-1,))
+    if isinstance(out, DTensor):
+        out = out.redistribute(out.device_mesh, out.placements)
+    return out
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``, an embedding lookup. On a mesh (``table`` a
+    DTensor) the table keeps its vocabulary shards and gathers any other
+    split; each rank looks up the tokens that fall in its vocabulary slice
+    (zero rows elsewhere), and the result is a partial sum over the
+    vocabulary's mesh dimensions that the next op reduces."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(table, DTensor):
+        return torch.nn.functional.embedding(tokens, table)
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, vocab = table.device_mesh, Shard(0)
+    tpl = tuple(vocab if pl == vocab else Replicate()
+                for pl in table.placements)
+    table = table.redistribute(mesh, tpl)
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    kpl = tuple(pl if pl == Shard(0) and tpl[d] != vocab else Replicate()
+                for d, pl in enumerate(tokens.placements))
+    tok = tokens.redistribute(mesh, kpl).to_local()
+    local = table.to_local()
+    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, tpl)
+    at = tok - offset[0]
+    inside = (at >= 0) & (at < local.shape[0])
+    rows = torch.nn.functional.embedding(
+        at.clamp(0, max(local.shape[0] - 1, 0)), local)
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return DTensor.from_local(
+        rows, mesh, tuple(Partial() if tpl[d] == vocab else kpl[d]
+                          for d in range(mesh.ndim)),
+        run_check=False, shape=shape, stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.insert(0, n)
+        n *= int(d)
+    return tuple(stride)
+
+
+def pad(t: torch.Tensor, widths) -> torch.Tensor:
+    """``torch.nn.functional.pad(t, widths)`` with zeros. On a DTensor the
+    padded dimensions are gathered whole first and each rank pads its
+    local tensor (partial sums stay partial: zeros add nothing)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return torch.nn.functional.pad(t, widths)
+    grown = {t.dim() - 1 - i // 2: 0 for i in range(len(widths))}
+    for i, w in enumerate(widths):
+        grown[t.dim() - 1 - i // 2] += w
+    pl = tuple(Replicate() if isinstance(p_, Shard) and grown.get(p_.dim)
+               else p_ for p_ in t.placements)
+    t = t.redistribute(t.device_mesh, pl)
+    shape = tuple(n + grown.get(d, 0) for d, n in enumerate(t.shape))
+    return DTensor.from_local(
+        torch.nn.functional.pad(t.to_local(), widths), t.device_mesh, pl,
+        run_check=False, shape=shape, stride=_contiguous_stride(shape))

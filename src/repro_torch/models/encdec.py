@@ -15,7 +15,7 @@ reference's vmapped init stacks them, and run as a loop over it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -23,7 +23,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (PARAM_DTYPE, dense_init, embed_init,
-                                       rms_norm, unstack)
+                                       embed_lookup, rms_norm, unstack)
+from repro_torch.parallel.sharding import constrain_batch_leading
 
 PyTree = Any
 
@@ -123,12 +124,13 @@ def decoder_forward(p, tokens: torch.Tensor, enc: torch.Tensor,
     (final-normed hidden (B, S, d), self-attention caches stacked over
     layers)."""
     S = tokens.shape[1]
-    h = p["embed"][tokens]
+    h = embed_lookup(tokens, p["embed"])
     positions = torch.arange(S, device=tokens.device)
     kv_pos = torch.arange(enc.shape[1], device=tokens.device)
     ck, cv = cross_kv(p["layers"], enc, cfg)
     caches = []
     for i, lp in enumerate(unstack(p["layers"], cfg.n_layers)):
+        h = constrain_batch_leading(h)      # residual-stream anchor
         a, cache = attn.gqa_forward(
             lp["self_attn"], rms_norm(h, lp["norm1"], cfg.norm_eps),
             positions, cfg, layer_is_local=False, causal=True)
@@ -179,23 +181,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def decode_step(params, tokens: torch.Tensor, caches: Dict, cache_pos,
-                cfg: ModelConfig, *, logits_mode: str = "full"
-                ) -> Tuple[torch.Tensor, Dict]:
+                cfg: ModelConfig, *, seq_axis: Optional[str] = None,
+                logits_mode: str = "full") -> Tuple[torch.Tensor, Dict]:
     """One decoder token. ``caches['cross_*']`` are the precomputed
     encoder K/V (fixed); only the self-attention cache is written, in
-    place. "full" returns (B, V) f32 logits (padding rows masked), "none"
-    the final hidden state (B, d)."""
+    place (``seq_axis``: the mesh dimension a DTensor self-attention cache
+    shards its sequence on, ``attention.gqa_decode``). "full" returns
+    (B, V) f32 logits (padding rows masked), "none" the final hidden
+    state (B, d)."""
     from repro_torch.models.lm import mask_padding_logits
-    h = params["embed"][tokens]
+    h = embed_lookup(tokens, params["embed"])
     kv_pos = torch.arange(cfg.encoder_frames, device=tokens.device)
     pos = torch.as_tensor(cache_pos, device=tokens.device).reshape(1)
     self_k = torch.unbind(caches["self"].k, 0)
     self_v = torch.unbind(caches["self"].v, 0)
     for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        h = constrain_batch_leading(h)      # residual-stream anchor
         a, _ = attn.gqa_decode(
             lp["self_attn"], rms_norm(h, lp["norm1"], cfg.norm_eps),
             attn.AttnCache(self_k[i], self_v[i]), cache_pos, cfg,
-            layer_is_local=False)
+            layer_is_local=False, seq_axis=seq_axis)
         h = h + a
         # cross attention: one query against the fixed encoder K/V
         hq = rms_norm(h, lp["norm_x"], cfg.norm_eps)

@@ -39,8 +39,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (PARAM_DTYPE, MetaGenerator,
-                                       dense_init, embed_init, rms_norm,
-                                       softcap, swiglu, unstack)
+                                       dense_init, embed_init, embed_lookup,
+                                       rms_norm, softcap, swiglu, unstack)
+from repro_torch.parallel.sharding import constrain_batch_leading, settled
 
 PyTree = Any
 
@@ -166,20 +167,21 @@ def layer_forward(p, x: torch.Tensor, positions: torch.Tensor,
 
 
 def layer_decode(p, x: torch.Tensor, cache, cache_pos, cfg: ModelConfig,
-                 i: int):
+                 i: int, *, seq_axis: Optional[str] = None):
     """One-token block step. x: (B, d). Returns (x', cache', aux): an
     attention cache is written in place and returned; a recurrent mixer
-    returns new state tensors."""
+    returns new state tensors. ``seq_axis``: the mesh dimension a DTensor
+    attention cache's sequence is sharded on (``attn.gqa_decode``)."""
     kind = position_kind(cfg, i)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
         if cfg.mla is not None:
             out, cache = attn.mla_decode(p["mixer"], h, cache, cache_pos,
-                                         cfg)
+                                         cfg, seq_axis=seq_axis)
         else:
             out, cache = attn.gqa_decode(
                 p["mixer"], h, cache, cache_pos, cfg,
-                layer_is_local=position_is_local(cfg, i))
+                layer_is_local=position_is_local(cfg, i), seq_axis=seq_axis)
     elif kind == "mamba":
         out, cache = ssm_mod.ssm_decode(p["mixer"], h, cache, cfg)
     elif kind == "mlstm":
@@ -270,7 +272,7 @@ def _stack_caches(caches: List):
 
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = params["embed"][tokens]
+    h = embed_lookup(tokens, params["embed"])
     if cfg.final_softcap is not None:   # gemma2 scales embeddings
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
     return h
@@ -297,6 +299,7 @@ def _period(layer: List, h: torch.Tensor, aux: torch.Tensor,
     (h, aux, the P layers' caches)."""
     caches = []
     for i, p in enumerate(layer):
+        h = constrain_batch_leading(h)      # residual-stream anchor
         h, cache, a = layer_forward(p, h, positions, cfg, i, causal=causal)
         caches.append(cache)
         aux = aux + a
@@ -344,10 +347,47 @@ def _chunk_nll(h: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
     logits = h.to(torch.float32) @ unembed.to(torch.float32)
     if cfg.final_softcap is not None:
         logits = softcap(logits, cfg.final_softcap)
-    logits = mask_padding_logits(logits, cfg)
+    logits = settled(mask_padding_logits(logits, cfg))
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = _label_logits(logits, labels)
     return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def _label_logits(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """``logits[..., label]``. On a mesh whose logits are sharded along
+    the vocabulary (a DTensor), each rank picks the labels that fall in
+    its vocabulary slice (0 elsewhere) and the picks sum over those mesh
+    dimensions: the gather never moves the logits."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(logits, DTensor) or Shard(logits.dim() - 1) not in \
+            logits.placements:
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, vocab = logits.device_mesh, Shard(logits.dim() - 1)
+    rows = tuple(pl if isinstance(pl, Shard) and pl != vocab else
+                 Replicate() for pl in logits.placements)
+    logits = logits.redistribute(mesh, tuple(
+        pl if pl == vocab else rows[d]
+        for d, pl in enumerate(logits.placements)))
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab = labels.redistribute(mesh, rows).to_local().long()
+    local = logits.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    n = local.shape[-1]
+    at = lab - offset[-1]
+    inside = (at >= 0) & (at < n)
+    picked = torch.gather(local, -1, at.clamp(0, max(n - 1, 0))[..., None])
+    picked = torch.where(inside, picked[..., 0], 0.0)
+    return DTensor.from_local(
+        picked, mesh, tuple(Partial() if pl == vocab else pl
+                            for pl in logits.placements),
+        run_check=False, shape=labels.shape,
+        stride=labels.stride()).redistribute(mesh, rows)
 
 
 def chunked_loss(h: torch.Tensor, unembed: torch.Tensor,
@@ -452,9 +492,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def decode_step(params, tokens: torch.Tensor, caches, cache_pos,
-                cfg: ModelConfig, *, logits_mode: str = "full"):
+                cfg: ModelConfig, *, seq_axis: Optional[str] = None,
+                logits_mode: str = "full"):
     """One decoding step. tokens: (B,) ids; cache_pos: the write index (an
-    int or a 0-d tensor).
+    int or a 0-d tensor; a host int with ``seq_axis``, the mesh dimension
+    DTensor attention caches shard their sequence on).
 
     ``logits_mode``: "full" returns (B, V) f32 logits (bf16 products summed
     in f32, padding rows masked); "none" returns the final hidden state
@@ -467,14 +509,16 @@ def decode_step(params, tokens: torch.Tensor, caches, cache_pos,
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     if cfg.is_encoder_decoder:
         return encdec.decode_step(params, tokens, caches, cache_pos, cfg,
-                                  logits_mode=logits_mode)
+                                  seq_axis=seq_axis, logits_mode=logits_mode)
     P = combined_period(cfg)
     h = _embed(params, tokens, cfg)
     cache_layers = [_cache_layers(c) for c in caches]
     for r, layer in enumerate(_layers(params, cfg)):
         for i in range(P):
             view = cache_layers[i][r]
-            h, new, _ = layer_decode(layer[i], h, view, cache_pos, cfg, i)
+            h = constrain_batch_leading(h)  # residual-stream anchor
+            h, new, _ = layer_decode(layer[i], h, view, cache_pos, cfg, i,
+                                     seq_axis=seq_axis)
             for dst, src in zip(view, new):
                 if src is not dst:
                     dst.copy_(src)

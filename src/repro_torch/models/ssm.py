@@ -24,7 +24,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import PARAM_DTYPE, dense_init
+from repro_torch.models.common import PARAM_DTYPE, dense_init, pad
+from repro_torch.parallel.sharding import settled
 
 
 class SSMCache(NamedTuple):
@@ -88,12 +89,12 @@ def _ssm_scan_chunked(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     return hs, h
 
 
-def _causal_conv(pad: torch.Tensor, w: torch.Tensor, S: int
+def _causal_conv(xp: torch.Tensor, w: torch.Tensor, S: int
                  ) -> torch.Tensor:
-    """Depthwise causal conv along seq: sum_i pad[:, i:i+S] * w[i]."""
-    conv = pad[:, 0:S] * w[0]
+    """Depthwise causal conv along seq: sum_i xp[:, i:i+S] * w[i]."""
+    conv = xp[:, 0:S] * w[0]
     for i in range(1, w.shape[0]):
-        conv = conv + pad[:, i:i + S] * w[i]
+        conv = conv + xp[:, i:i + S] * w[i]
     return conv
 
 
@@ -106,11 +107,12 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     f32 = torch.float32
     xi_raw, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)   # (B, S, d_inner)
 
-    pad = torch.nn.functional.pad(xi_raw, (0, 0, d_conv - 1, 0))
-    xi = torch.nn.functional.silu(_causal_conv(pad, p["conv_w"], S)
+    padded = pad(xi_raw, (0, 0, d_conv - 1, 0))
+    xi = torch.nn.functional.silu(_causal_conv(padded, p["conv_w"], S)
                                   + p["conv_b"])
 
-    proj = (xi @ p["x_proj"]).to(f32)
+    # on a mesh the projection sums d_inner's shards here (it is small)
+    proj = settled((xi @ p["x_proj"]).to(f32))
     dt, Bm, Cm = torch.split(proj, [dt_rank, N, N], dim=-1)
     dt = torch.nn.functional.softplus(dt @ p["dt_proj"].to(f32)
                                       + p["dt_bias"])
@@ -125,7 +127,7 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     y = y.to(x.dtype) * torch.nn.functional.silu(z)
     out = y @ p["out_proj"]
     # the conv cache holds the last d_conv-1 PRE-activation conv inputs
-    raw_tail = pad[:, S:S + d_conv - 1]
+    raw_tail = padded[:, S:S + d_conv - 1]
     return out, SSMCache(raw_tail.to(x.dtype), h_last)
 
 
@@ -140,7 +142,8 @@ def ssm_decode(p, x: torch.Tensor, cache: SSMCache, cfg: ModelConfig
     conv = torch.einsum("bce,ce->be", window, p["conv_w"]) + p["conv_b"]
     xi = torch.nn.functional.silu(conv)
 
-    proj = (xi @ p["x_proj"]).to(f32)
+    # on a mesh the projection sums d_inner's shards here (it is small)
+    proj = settled((xi @ p["x_proj"]).to(f32))
     dt, Bm, Cm = torch.split(proj, [dt_rank, N, N], dim=-1)
     dt = torch.nn.functional.softplus(dt @ p["dt_proj"].to(f32)
                                       + p["dt_bias"])

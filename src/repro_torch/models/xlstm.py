@@ -24,7 +24,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import PARAM_DTYPE, dense_init, rms_norm
+from repro_torch.models.common import (PARAM_DTYPE, dense_init,
+                                       merge_heads, pad, rms_norm,
+                                       split_heads)
 
 
 class MLSTMCache(NamedTuple):
@@ -102,16 +104,16 @@ def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     B, S, _ = x.shape
     f32 = torch.float32
     xm_raw, z = torch.chunk(x @ p["w_in"], 2, dim=-1)
-    pad = (torch.cat([cache.conv, xm_raw], dim=1) if cache is not None
-           else torch.nn.functional.pad(xm_raw, (0, 0, D_CONV - 1, 0)))
-    conv = pad[:, 0:S] * p["conv_w"][0]
+    padded = (torch.cat([cache.conv, xm_raw], dim=1) if cache is not None
+              else pad(xm_raw, (0, 0, D_CONV - 1, 0)))
+    conv = padded[:, 0:S] * p["conv_w"][0]
     for i in range(1, D_CONV):
-        conv = conv + pad[:, i:i + S] * p["conv_w"][i]
+        conv = conv + padded[:, i:i + S] * p["conv_w"][i]
     xc = torch.nn.functional.silu(conv + p["conv_b"])
 
-    q = (xc @ p["w_q"]).reshape(B, S, H, d_qk)
-    k = (xc @ p["w_k"]).reshape(B, S, H, d_qk) * d_qk ** -0.5
-    v = (xm_raw @ p["w_v"]).reshape(B, S, H, d_v)
+    q = split_heads(xc @ p["w_q"], H)
+    k = split_heads(xc @ p["w_k"], H) * d_qk ** -0.5
+    v = split_heads(xm_raw @ p["w_v"], H)
     gates = xc.to(f32) @ p["w_if"] + p["b_if"]
     ig, fg_raw = gates[..., :H], gates[..., H:]
     fg = torch.nn.functional.logsigmoid(fg_raw)   # forget gate in (0, 1)
@@ -127,10 +129,10 @@ def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
         state, h = _mlstm_cell(q[:, t].to(f32), k[:, t].to(f32),
                                v[:, t].to(f32), ig[:, t], fg[:, t], state)
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, d_inner)       # (B,S,H*dv)
+    h = merge_heads(torch.stack(hs, dim=1))                 # (B,S,H*dv)
     h = rms_norm(h.to(x.dtype), p["gn"], cfg.norm_eps)
     out = (h * torch.nn.functional.silu(z)) @ p["w_out"]
-    conv_tail = pad[:, S:S + D_CONV - 1]   # last D_CONV-1 raw conv inputs
+    conv_tail = padded[:, S:S + D_CONV - 1]   # last D_CONV-1 raw conv inputs
     return out, MLSTMCache(state[0], state[1], state[2],
                            conv_tail.to(x.dtype))
 
@@ -169,7 +171,7 @@ def _slstm_cell(p, xt, state, H):
     B, d = xt.shape
     dh = d // H
     gx = xt @ p["w_x"] + p["b"]                              # (B, 4d)
-    hb = h_prev.reshape(B, H, dh)
+    hb = split_heads(h_prev, H)
     # recurrent term in the (B, 4 gates, H, dh) order, flattened to 4d
     rec = torch.einsum("bhj,ghjk->bghk", hb, p["r_h"]).reshape(B, 4 * d)
     g = gx + rec

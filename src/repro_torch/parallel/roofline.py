@@ -6,9 +6,10 @@ dense bf16 tensor-core rate, the HBM bytes over their memory rate, and
 the per-device collective wire bytes over one link's rate. The card's
 peaks come from :data:`PEAKS`, keyed by the name
 ``torch.cuda.get_device_name`` reports; an unknown card raises rather
-than be given a guess. There is no counterpart of the reference's HLO
-collective parser yet: a one-card step moves no wire bytes, and the mesh
-item brings ``torch.profiler``'s NCCL events.
+than be given a guess. In place of the reference's HLO collective
+parser, the wire bytes come from ``parallel/collectives.py``: the
+collectives DTensor and the shard groups issue under a dispatch
+recorder, or ``torch.profiler``'s NCCL events of a run on the card.
 """
 
 from __future__ import annotations
@@ -19,21 +20,25 @@ from typing import Dict, NamedTuple, Optional
 class Peaks(NamedTuple):
     """A card's data-sheet peaks: dense bf16 and f32 (outside the tensor
     cores, a fused multiply-add counted as 2) FLOP/s, HBM bytes/s, NVLink
-    bytes/s, its L2 size in bytes, and the power limit (W) they are quoted
-    at."""
+    bytes/s, its L2 size in bytes, the power limit (W) they are quoted
+    at, and its memory in bytes."""
     bf16_flops: float
     f32_flops: float
     hbm_bytes: float
     link_bytes: float
     l2_bytes: int
     power_w: float
+    memory_bytes: int
 
+
+# the card the port targets, whose peaks a run off the card reads
+TARGET_CARD = "NVIDIA H100 80GB HBM3"
 
 # NVIDIA H100 SXM5 data sheet: 989 TFLOP/s dense bf16, 67 TFLOP/s f32,
-# 3.35 TB/s HBM3, 900 GB/s NVLink, 50 MB L2, at the 700 W limit
+# 3.35 TB/s HBM3, 900 GB/s NVLink, 50 MB L2, at the 700 W limit, 80 GB
 PEAKS: Dict[str, Peaks] = {
-    "NVIDIA H100 80GB HBM3": Peaks(989e12, 67e12, 3.35e12, 900e9,
-                                   50 * 2 ** 20, 700.0),
+    TARGET_CARD: Peaks(989e12, 67e12, 3.35e12, 900e9, 50 * 2 ** 20, 700.0,
+                       80 * 10 ** 9),
 }
 
 

@@ -12,7 +12,7 @@ NamedTuple field (``jax.tree_util.GetAttrKey``), so that
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 Tree = Any
 
@@ -21,23 +21,29 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def flatten_with_paths(tree: Tree, prefix: str = ""
+def flatten_with_paths(tree: Tree, prefix: str = "", *,
+                       is_leaf: Optional[Callable[[Any], bool]] = None
                        ) -> List[Tuple[str, Any]]:
-    """(path key, leaf) pairs in the reference's order and spelling."""
+    """(path key, leaf) pairs in the reference's order and spelling; a
+    node for which ``is_leaf`` holds is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix[1:], tree)]
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out += flatten_with_paths(tree[k], f"{prefix}/[{k!r}]")
+            out += flatten_with_paths(tree[k], f"{prefix}/[{k!r}]",
+                                      is_leaf=is_leaf)
         return out
     if _is_namedtuple(tree):
         out = []
         for name, v in zip(tree._fields, tree):
-            out += flatten_with_paths(v, f"{prefix}/.{name}")
+            out += flatten_with_paths(v, f"{prefix}/.{name}",
+                                      is_leaf=is_leaf)
         return out
     if isinstance(tree, (list, tuple)):
         out = []
         for i, v in enumerate(tree):
-            out += flatten_with_paths(v, f"{prefix}/[{i}]")
+            out += flatten_with_paths(v, f"{prefix}/[{i}]", is_leaf=is_leaf)
         return out
     return [(prefix[1:], tree)]
 

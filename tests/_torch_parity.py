@@ -7,6 +7,7 @@ Packed codes cross as the int32 view of the reference's uint32 words.
 from __future__ import annotations
 
 import ast
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -136,3 +137,34 @@ def reference_dryrun():
         else:
             os.environ["XLA_FLAGS"] = old
     return dryrun
+
+
+@contextlib.contextmanager
+def gloo_world_of_one(where):
+    """A default gloo process group of one rank over a file rendezvous in
+    the directory ``where`` (no network), destroyed on exit: a 1 x 1 CPU
+    mesh's world."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("gloo", init_method=f"file://{where}/rdv",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def run_script(code: str, timeout: float):
+    """Runs ``code`` in a fresh Python with this process's import path;
+    returns the JSON its last stdout line prints (fails the test on a
+    non-zero exit, with the output)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=timeout)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])

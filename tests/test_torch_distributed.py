@@ -327,9 +327,11 @@ def test_legacy_shims_equal_the_engine(data):
     assert torch.equal(i1, want) and torch.equal(i2, want)
 
 
-def test_gloo_process_group_equals_the_in_process_group(tmp_path):
-    """4 spawned processes, one shard each, gloo over a file rendezvous:
-    both arms, scalar and planned budgets, equal the in-process group."""
+@pytest.fixture(scope="module")
+def gloo_run(tmp_path_factory):
+    """4 spawned processes, one shard each, gloo over a file rendezvous
+    (``_torch_dist_worker.run``); the directory their results are in."""
+    tmp_path = tmp_path_factory.mktemp("gloo")
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=worker.run,
                          args=(r, worker.SHARDS, str(tmp_path / "rdv"),
@@ -349,7 +351,13 @@ def test_gloo_process_group_equals_the_in_process_group(tmp_path):
                 p.kill()
                 p.join(5)
     assert [p.exitcode for p in procs] == [0] * worker.SHARDS
-    got = np.load(tmp_path / "rank0.npz")
+    return tmp_path
+
+
+def test_gloo_process_group_equals_the_in_process_group(gloo_run):
+    """4 spawned processes, one shard each, gloo over a file rendezvous:
+    both arms, scalar and planned budgets, equal the in-process group."""
+    got = np.load(gloo_run / "rank0.npz")
     sidx, queries = worker.build()
     group = distributed.InProcessShardGroup(worker.SHARDS)
     for engine in ("bucket", "dense"):
@@ -361,3 +369,87 @@ def test_gloo_process_group_equals_the_in_process_group(tmp_path):
                                           i.numpy())
             np.testing.assert_array_equal(got[f"{engine}_{mode}_vals"],
                                           v.numpy())
+
+
+def test_gloo_sequence_sharded_decode(gloo_run):
+    """The same 4 ranks, one sequence shard each: the combine over the
+    process group equals ``decode_attention`` on the whole cache, and
+    ``gqa_decode(seq_axis="model")`` on a DTensor cache over the (1, 4)
+    mesh writes the new key and value on the owning shard only and
+    equals the meshless step (f32, atol 1e-5)."""
+    from repro_torch.models import attention as attn
+    cfg, p, x, k, v, q = worker.seq_inputs()
+    want_o = attn.decode_attention(q, k, v, worker.SEQ_POS)
+    cache = attn.AttnCache(k.clone(), v.clone())
+    want_out, cache = attn.gqa_decode(p, x, cache, worker.SEQ_POS, cfg,
+                                      layer_is_local=False)
+    s_loc = worker.SEQ // worker.SHARDS
+    owner = worker.SEQ_POS // s_loc
+    for r in range(worker.SHARDS):
+        got = np.load(gloo_run / f"seq{r}.npz")
+        np.testing.assert_allclose(got["combine"], want_o.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got["out"], want_out.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+        mine = slice(r * s_loc, (r + 1) * s_loc)
+        for name, before, after in (("k", k, cache.k), ("v", v, cache.v)):
+            shard = got[name]
+            if r == owner:
+                np.testing.assert_allclose(shard, after[:, mine].numpy(),
+                                           atol=1e-6)
+                assert not np.array_equal(shard, before[:, mine].numpy())
+            else:
+                np.testing.assert_array_equal(shard, before[:, mine].numpy())
+
+
+def test_gloo_expert_parallel_moe(gloo_run):
+    """The same 4 ranks: reduced granite-moe's layer with its expert
+    stacks sharded over the (1, 4) mesh's ``model`` dimension (each rank
+    routes the tokens and runs only its own experts, the outputs summed
+    over the ranks) equals the meshless layer (f32, atol 1e-5)."""
+    from repro_torch.models import moe
+    cfg, p, x = worker.moe_inputs()
+    want, aux = moe.moe_forward(p, x, cfg)
+    held = []
+    for r in range(worker.SHARDS):
+        got = np.load(gloo_run / f"moe{r}.npz")
+        np.testing.assert_allclose(got["out"], want.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(got["aux"], aux.numpy(), rtol=1e-6)
+        held.append(int(got["experts"]))
+    assert sum(held) == cfg.moe.num_experts and max(held) < sum(held)
+
+
+def test_gloo_sequence_sharded_mla_decode(gloo_run):
+    """The same 4 ranks: reduced minicpm3's MLA decode with its latent and
+    rope-key caches sharded along the sequence over ``model`` writes the
+    slot on the owning shard only and equals the meshless decode (f32,
+    atol 1e-5)."""
+    from repro_torch.models import attention as attn
+    cfg, p, x, c, r = worker.mla_inputs()
+    cache = attn.AttnCache(c.clone(), r.clone())
+    want, cache = attn.mla_decode(p, x, cache, worker.SEQ_POS, cfg)
+    s_loc = worker.SEQ // worker.SHARDS
+    for rank in range(worker.SHARDS):
+        got = np.load(gloo_run / f"mla{rank}.npz")
+        np.testing.assert_allclose(got["out"], want.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+        mine = slice(rank * s_loc, (rank + 1) * s_loc)
+        np.testing.assert_allclose(got["c"], cache.k[:, mine].numpy(),
+                                   atol=1e-6)
+        np.testing.assert_allclose(got["r"], cache.v[:, mine].numpy(),
+                                   atol=1e-6)
+        if rank != worker.SEQ_POS // s_loc:
+            np.testing.assert_array_equal(got["c"], c[:, mine].numpy())
+
+
+def test_gloo_label_logits_from_a_vocab_sharded_table(gloo_run):
+    """The same 4 ranks: the loss's label logits picked from logits
+    sharded unevenly along the vocabulary (each rank its slice, the picks
+    summed) equal ``torch.gather`` on the whole logits."""
+    logits, labels = worker.vocab_inputs()
+    want = torch.gather(logits, -1, labels[..., None])[..., 0].numpy()
+    for r in range(worker.SHARDS):
+        np.testing.assert_array_equal(
+            np.load(gloo_run / f"vocab{r}.npz")["got"], want)
+

@@ -7,9 +7,21 @@ largest configs would take ~214 GB and ~796 GB of bf16 weights). The
 abstract ``TrainState`` has the reference's leaf keys, shapes and dtypes
 on all ten configs, so a checkpoint of any config crosses packages; so
 do the inputs of every cell.
+
+Then the cells on the production meshes: one cell through the CLI in a
+subprocess (its fake 256-rank process group never reaches this
+process), the collectives' wire bytes and summary against
+``repro.parallel.hlo_analysis``'s on the same entries, the profiler and
+shard-group sources, and the MIPS cell's machinery at a small size on
+the CPU.
 """
 
 import functools
+import json
+import os
+import subprocess
+import sys
+import types
 
 import jax
 import pytest
@@ -19,10 +31,12 @@ from _torch_parity import reference_dryrun
 from repro.configs import base as jbase
 from repro.data import tokens as jtokens
 from repro.launch import train as jtrain
+from repro.parallel import hlo_analysis as jhlo
 from repro_torch import tree
 from repro_torch.configs import base
 from repro_torch.data import tokens
 from repro_torch.launch import dryrun, train
+from repro_torch.parallel import collectives
 
 CELLS = [(a, s) for a in jbase.ARCH_IDS for s in jbase.shape_cells(a)]
 
@@ -95,3 +109,117 @@ def test_abstract_caches_allocate_nothing():
         want = reference_dryrun()._abstract_cache(jbase.get_config(arch), 1,
                                                   524288)
         assert _layout(caches) == _reference_layout(want)
+
+
+# -- cells on the production meshes ------------------------------------------
+
+# the cheapest production cell: one decode step of Qwen3-0.6B, ~3 s
+CELL = ("qwen3_0_6b", "decode_32k")
+
+
+def test_one_production_cell_runs_in_a_subprocess(tmp_path):
+    """``python -m repro_torch.launch.dryrun`` on one cell of the 16 x 16
+    pod mesh, its fake process group in the subprocess only."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         CELL[0], "--shape", CELL[1], "--mesh", "pod", "--out",
+         str(tmp_path)], capture_output=True, text=True, env=env,
+        timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr[-3000:]
+    rec = json.load(open(tmp_path / f"{CELL[0]}__{CELL[1]}__pod.json"))
+    assert rec["ok"] and rec["chips"] == 256
+    assert rec["mesh_shape"] == {"data": 16, "model": 16}
+    assert rec["roofline"]["compute_s"] > 0
+    assert rec["collectives"]["total_wire_bytes"] > 0
+    assert rec["collective_counts"]["all-reduce"] > 0
+    mem = rec["memory_analysis"]
+    assert mem["argument_bytes"] > 0 and mem["peak_bytes"] is None
+    # the caches shard 128 requests over data and 32,768 slots over model
+    cfg = base.get_config(CELL[0])
+    per_layer = (128 // 16) * (32768 // 16) * cfg.n_kv \
+        * cfg.resolved_head_dim * 2
+    assert mem["argument_bytes"] > 2 * cfg.n_layers * per_layer
+    assert rec["layout"]["stationary"]
+    assert rec["layout"]["card"] == "NVIDIA H100 80GB HBM3"
+
+
+def test_cli_needs_a_cell():
+    with pytest.raises(SystemExit, match="required"):
+        dryrun.main(["--mesh", "pod"])
+
+
+@pytest.mark.parametrize("op", jhlo._COLLECTIVES)
+@pytest.mark.parametrize("g", [1, 2, 16, 256])
+def test_wire_bytes_equal_the_reference(op, g):
+    assert collectives.wire_bytes(op, 4096, 65536, g) == \
+        jhlo._wire_bytes(op, 4096, 65536, g)
+
+
+def test_summary_equals_the_reference():
+    colls = [collectives.record(op, 1 << (10 + i), 1 << (12 + i), g)
+             for i, (op, g) in enumerate(
+                 [("all-gather", 16), ("all-reduce", 16),
+                  ("reduce-scatter", 256), ("all-reduce", 2),
+                  ("all-to-all", 16), ("collective-permute", 4)])]
+    assert collectives.summarize_collectives(colls) == \
+        jhlo.summarize_collectives(colls)
+    assert collectives.counts_by_op(colls)["all-reduce"] == 2
+
+
+def test_profiler_events_give_collectives():
+    """``nccl:``/``gloo:`` events of a profiled run (their input shapes
+    and dtypes): op, bytes and the ring factors."""
+    ev = [types.SimpleNamespace(name="nccl:all_reduce",
+                                input_shapes=[[4, 8]], input_dtypes=["float"]),
+          types.SimpleNamespace(name="gloo:all_gather",
+                                input_shapes=[[2, 8]],
+                                input_dtypes=["c10::BFloat16"]),
+          types.SimpleNamespace(name="aten::mm", input_shapes=[[2, 2]],
+                                input_dtypes=["float"])]
+    colls = collectives.from_profiler(ev, 4)
+    assert [c["op"] for c in colls] == ["all-reduce", "all-gather"]
+    assert colls[0]["in_bytes"] == 128
+    assert colls[0]["wire_bytes"] == 2 * 0.75 * 128
+    assert colls[1]["out_bytes"] == 4 * 32
+
+
+def test_recording_group_counts_one_members_gathers():
+    from repro_torch.core.distributed import InProcessShardGroup
+    g = collectives.RecordingShardGroup(InProcessShardGroup(4))
+    out = g.all_gather([torch.ones(3, 2)] * 4)
+    assert out.shape == (4, 3, 2) and g.size == 4
+    g.all_reduce([torch.ones(5)] * 4, "max")
+    assert [c["op"] for c in g.collectives] == ["all-gather", "all-reduce"]
+    assert g.collectives[0]["wire_bytes"] == 0.75 * 4 * 24
+    assert g.collectives[1]["wire_bytes"] == 2 * 0.75 * 20
+
+
+def test_mips_cell_runs_the_sharded_engine_on_the_cpu(tmp_path):
+    """The MIPS cell's machinery at a small size on the CPU: the index
+    built and sharded over the pod mesh's 16 data shards x 16 query
+    shards, the measured bucket count, the kernels' cost counters and the
+    gathers' wire bytes."""
+    rec = dryrun.run_mips_cell("pod", str(tmp_path), device="cpu", n=3000,
+                               d=16, L=32, m=8, k=5, probe=64, nq=32)
+    assert rec["ok"], rec.get("error")
+    assert rec["chips"] == 256 and rec["shards"] == 16
+    assert rec["query_shards"] == 16
+    assert 0 < rec["num_buckets"] <= 3000
+    assert rec["collective_counts"] == {"all-gather": 2}
+    assert rec["collectives"]["total_wire_bytes"] > 0
+    for op in ("hash_encode", "hamming_scan", "bucket_gather"):
+        assert rec["cost_counters"][f"{op}.flops"] > 0
+    assert rec["roofline"]["compute_s"] > 0
+    assert json.load(open(tmp_path / "range_lsh_mips__pod.json"))["ok"]
+
+
+def test_all_records_a_cell_past_its_timeout(tmp_path):
+    """``--all``'s runner kills a cell's process past its time and
+    records the cell as failed (xlstm's prefill at 32,768 steps of its
+    sequential loop takes far longer than 3 s)."""
+    ok = dryrun.run_cells([("xlstm_1_3b", "prefill_32k", "pod")],
+                          str(tmp_path), jobs=1, timeout=3)
+    rec = json.load(open(tmp_path / "xlstm_1_3b__prefill_32k__pod.json"))
+    assert not ok and not rec["ok"]
+    assert rec["error"] == "timed out after 3 s"

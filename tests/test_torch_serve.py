@@ -10,14 +10,19 @@ exact server, as ``tests/test_serve.py`` holds the reference; the port's
 first greedy token equals the reference's on each row whose reference
 top-1 logit margin exceeds ``2 * LOGIT_ATOL`` (the stack's logit
 tolerance, ``test_torch_models.py``), and at least half the rows must
-qualify.
+qualify. On a mesh: ``param_count``/``serve_fsdp_axis`` equal the
+reference's on every config, and prefill, decode and the LSH head on a
+1 x 1 CPU mesh equal the meshless steps bit for bit.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import gloo_world_of_one
 from jax.sharding import Mesh
 
 from repro.configs.base import get_config as jget_config
@@ -26,7 +31,7 @@ from repro.launch import serve as jserve
 from repro.models import lm as jlm
 from repro.models import lm_head as jhead
 from repro_torch import convert
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.core import planner
 from repro_torch.core.bucket_index import BucketIndex, build_bucket_index
 from repro_torch.core.distributed import InProcessShardGroup
@@ -368,3 +373,60 @@ def test_decode_step_prefill_and_bucket_arrays(lm_pair, heads):
                           {"codes": pv.codes, "range_id": pv.range_id,
                            "upper": pv.upper, "A": pv.A, **arrs})
     assert ids.shape == (4, 2)
+
+
+# -- on a mesh ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_count_and_serve_axis_equal_the_references(arch):
+    params = lm.init_params(None, get_config(arch), device="meta")
+    jparams = jax.eval_shape(functools.partial(
+        jlm.init_params, cfg=jget_config(arch)), jax.random.PRNGKey(0))
+    assert serve.param_count(params) == jserve.param_count(jparams)
+    assert serve.serve_fsdp_axis(params) == jserve.serve_fsdp_axis(jparams)
+    assert (serve.FSDP_SERVE_THRESHOLD, serve.MODEL_AXIS) == \
+        (jserve.FSDP_SERVE_THRESHOLD, jserve.MODEL_AXIS)
+
+
+def test_decode_on_a_mesh_equals_the_meshless_decode(lm_pair, heads,
+                                                     tmp_path):
+    """A 1 x 1 CPU mesh (a gloo world of one): ``make_prefill(mesh=)`` and
+    ``make_decode_step(mesh=)`` (stationary params, caches sequence on
+    ``model``, the local combine over one shard) give the meshless hidden
+    state, logits and greedy tokens bit for bit, and so does the LSH head
+    on the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_local_mesh
+    _, cfg, _, pp = lm_pair
+    _, pv, _, _, _ = heads
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab, (4, 6)))
+    h0, c0 = serve.make_prefill(cfg)(pp, toks)
+    c0 = lm.extend_cache(cfg, c0, 12)
+    with gloo_world_of_one(tmp_path):
+        mesh = make_local_mesh(device_type="cpu")
+        h1, c1 = serve.make_prefill(cfg, mesh=mesh)(pp, toks)
+        assert isinstance(h1, DTensor)
+        assert torch.equal(h1.full_tensor(), h0)
+        c1 = lm.extend_cache(cfg, c1, 12)
+        plain, meshed = (serve.make_decode_step(cfg),
+                         serve.make_decode_step(cfg, mesh=mesh))
+        n0 = n1 = toks[:, -1]
+        for pos in range(6, 11):
+            l0, c0 = plain(pp, n0, c0, pos)
+            l1, c1 = meshed(pp, n1, c1, pos)
+            assert not isinstance(l1, DTensor)
+            assert torch.equal(l1, l0), pos
+            n0, n1 = l0.argmax(-1), l1.argmax(-1)
+        assert all(isinstance(x, DTensor) for c in c1 for x in c)
+        kw = dict(lsh_decode=True, topk=2, num_probe=cfg.padded_vocab,
+                  vocab_meta=(pv.code_len, pv.hash_bits, pv.eps))
+        arrays = {"codes": pv.codes, "range_id": pv.range_id,
+                  "upper": pv.upper, "A": pv.A}
+        (v0, i0), _ = serve.make_decode_step(cfg, **kw)(pp, n0, c0, 11,
+                                                        arrays)
+        (v1, i1), _ = serve.make_decode_step(cfg, mesh=mesh, **kw)(
+            pp, n1, c1, 11, arrays)
+        assert torch.equal(i1, i0) and torch.equal(v1, v0)

@@ -30,8 +30,13 @@ carried by ``convert``.
   order decides); those elements are counted.
 * The reference's ``test_train.py`` cases on the port, and a run resumed
   across packages both ways.
+* On a 1 x 1 CPU mesh (a gloo world of one): the step with the state
+  placed as DTensors by ``state_specs`` equals the meshless step bit for
+  bit, ``run_training(mesh=)`` writes the meshless checkpoint, and
+  ``runtime.elastic_recover`` restores either package's checkpoint.
 """
 
+import copy
 import functools
 
 import jax
@@ -39,6 +44,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import gloo_world_of_one
 
 from repro.checkpoint.manager import CheckpointManager as JaxManager
 from repro.configs import base as jbase
@@ -366,3 +372,93 @@ def test_resume_across_packages(tmp_path):
                         on_metrics=lambda s, m: jseen.append(s), **kw)
     assert jseen == [4, 5]
     assert CheckpointManager(str(tmp_path)).latest_step() == 6
+
+
+# -- on a mesh ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "granite_moe_1b_a400m"])
+def test_train_step_on_a_mesh_equals_the_meshless_step(arch, tmp_path):
+    """Reduced Qwen3 and granite-moe (its experts on local shards) on a
+    1 x 1 CPU mesh (a gloo world of one): the state placed by
+    ``state_specs`` as DTensors, three steps give the meshless step's
+    losses and state bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_local_mesh as local_mesh
+    cfg = base.get_config(arch).reduced()
+    hp = train.TrainHParams(**HP)
+    plain = train.init_state(torch.Generator().manual_seed(3), cfg,
+                             device="cpu")
+    corpus = SyntheticCorpus(cfg.vocab, S, seed=1, device="cpu")
+    with gloo_world_of_one(tmp_path):
+        mesh = local_mesh(device_type="cpu")
+        placed = train.shard_state(copy.deepcopy(plain), cfg, mesh)
+        assert all(isinstance(x, DTensor) for x in tree.leaves(placed))
+        meshless = train.make_train_step(cfg, hp)
+        meshed = train.make_train_step(cfg, hp, mesh=mesh)
+        for step in range(3):
+            batch = dict(corpus.sample(step, 0, B)._asdict())
+            plain, want = meshless(plain, dict(batch), step)
+            placed, got = meshed(placed, dict(batch), step)
+            for k in want:
+                assert not isinstance(got[k], DTensor)
+                assert torch.equal(got[k], want[k]), (step, k)
+        full = dict(tree.flatten_with_paths(train.unshard(placed)))
+    for path, leaf in tree.flatten_with_paths(plain):
+        assert torch.equal(full[path], leaf), path
+
+
+def test_run_training_on_a_mesh_writes_the_meshless_checkpoint(tmp_path):
+    """``run_training(mesh=)`` on the 1 x 1 mesh writes the gathered state,
+    equal bit for bit to the meshless run's checkpoint."""
+    from repro_torch.launch.mesh import make_local_mesh as local_mesh
+    cfg = base.get_config("qwen3_0_6b").reduced()
+    hp = train.TrainHParams(**HP)
+    kw = dict(global_batch=2, seq_len=16, ckpt_every=2, device="cpu")
+    train.run_training(cfg, hp, steps=2, ckpt_dir=str(tmp_path / "plain"),
+                       **kw)
+    with gloo_world_of_one(tmp_path):
+        train.run_training(cfg, hp, steps=2, ckpt_dir=str(tmp_path / "mesh"),
+                           mesh=local_mesh(device_type="cpu"), **kw)
+    template = train.init_state(torch.Generator().manual_seed(9), cfg,
+                                device="cpu")
+    want = CheckpointManager(str(tmp_path / "plain")).restore(2, template)
+    got = CheckpointManager(str(tmp_path / "mesh")).restore(2, template)
+    for (path, a), (_, b) in zip(tree.flatten_with_paths(got),
+                                 tree.flatten_with_paths(want)):
+        assert torch.equal(a, b), path
+
+
+def test_elastic_recover_restores_either_packages_checkpoint(tmp_path):
+    """``elastic_recover`` re-meshes the survivors (one 1 x 1 slice of a
+    gloo world of one) and restores the latest checkpoint bit for bit,
+    whether the reference wrote it or the port did."""
+    from repro_torch.launch import runtime
+    jcfg = jbase.get_config("qwen3_0_6b").reduced()
+    cfg = base.get_config("qwen3_0_6b").reduced()
+    jstate = jtrain.init_state(jax.random.PRNGKey(4), jcfg)
+    JaxManager(str(tmp_path / "ref")).save(3, jstate)
+    pstate = train.init_state(torch.Generator().manual_seed(4), cfg,
+                              device="cpu")
+    CheckpointManager(str(tmp_path / "port")).save(5, pstate)
+    template = train.init_state(torch.Generator().manual_seed(5), cfg,
+                                device="cpu")
+    with gloo_world_of_one(tmp_path):
+        mesh, step, got = runtime.elastic_recover(
+            CheckpointManager(str(tmp_path / "ref")), template,
+            surviving_slices=1, slice_shape=(1, 1), device_type="cpu")
+        assert step == 3
+        assert tuple(mesh.mesh_dim_names) == ("data", "model")
+        _equal_leaves(got, jstate)
+        _, step, got = runtime.elastic_recover(
+            CheckpointManager(str(tmp_path / "port")), template,
+            surviving_slices=1, slice_shape=(1, 1), device_type="cpu")
+        assert step == 5
+        for (path, a), (_, b) in zip(tree.flatten_with_paths(got),
+                                     tree.flatten_with_paths(pstate)):
+            assert torch.equal(a, b), path
+        with pytest.raises(RuntimeError, match="no checkpoint"):
+            runtime.elastic_recover(
+                CheckpointManager(str(tmp_path / "empty")), template,
+                surviving_slices=1, slice_shape=(1, 1), device_type="cpu")
