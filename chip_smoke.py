@@ -188,9 +188,9 @@ Phases, each fatal on failure:
    inside the row), ``hamming_scan`` at 8 x 202,240 (llama4) and both
    fused builds at 8 x V for whisper's d 768 and llama4's d 5120. Last,
    jamba-1.5-large at d 8192, blocks only (its ~796 GB of weights fit no
-   1 or 4 cards): one Mamba layer (prefill 64 tokens, 16 decode steps,
-   equal to one forward over all 80 within 5e-2, the conv cache
-   exactly) and one MoE layer (16 experts top-2, d_ff 24,576: a prefill
+   1 or 4 cards): one Mamba layer (prefill 64 tokens through the chunked
+   scan, 16 decode steps, equal to one forward over all 80 within 5e-2,
+   the conv cache exactly) and one MoE layer (16 experts top-2, d_ff 24,576: a prefill
    batch and a decode group, finite, aux >= 1).
 
 9. Training at full width, no kernel of its own (the reference trains
@@ -210,11 +210,23 @@ Phases, each fatal on failure:
    through ``make_train_step`` for 5 steps each: every loss, ce, aux and
    gnorm finite, granite's aux >= 1, every param and gradient on the
    card. Printed for each: parameter count, step p50 on the host clock
-   (ending in a synchronise, the first step left out), tokens/s, the
-   median of 3 steps split into forward, backward and optimizer (CUDA
-   events), one profiled step's device-busy share, peak memory above what
-   the earlier phases still hold; Qwen3's checkpoint size, write and restore
-   seconds. The directory is removed afterwards.
+   (ending in a synchronise, the first step left out), tokens/s, one
+   profiled step's device-busy share and its forward, backward and
+   optimizer split, peak memory above what the earlier phases still hold;
+   each state's checkpoint size, write and restore seconds. The directory
+   is removed afterwards. Then xlstm-1.3b at full width (d 2048, 4
+   heads, its 7 mLSTM : 1 sLSTM period) cut to one period, 8 of its 48
+   blocks, at 4 x 64 tokens through ``make_train_step`` for 5 steps, the
+   same checks and prints (no checkpoint), and the loss on a held-out
+   batch must fall across the steps. Last, jamba's Mamba block at full
+   width (d 8192, d_inner 16,384, N 16, chunk 16) on f32 copies of
+   seeded weights, 2 x 1,024 tokens: forward and backward (the gradients
+   of a seeded cotangent with respect to the input and every weight)
+   through the chunked scan, timed, with its peak memory, then with the
+   sequential loop in its place (``sequential_scan``, the plain version):
+   the output, the final state and every gradient within 1e-4 of the
+   loop's largest magnitude. A whole jamba layer does not train on one
+   card (its MoE's f32 AdamW moments alone are ~77 GB).
 
 10. The paper's own application: ALS embeddings served through
     RANGE-LSH. ``synthetic_ratings`` at 20,000 users x 17,770 items
@@ -260,7 +272,8 @@ Phases, each fatal on failure:
     leaves ``meta`` or ``torch.cuda.memory_allocated`` moves.
 
 12. The mesh. The dry run's Qwen3-0.6B cells (train_4k, prefill_32k,
-    decode_32k) on the 16 x 16 pod mesh start first, each in its own
+    decode_32k) and xlstm-1.3b's train_4k (its time loops traced by
+    trip) on the 16 x 16 pod mesh start first, each in its own
     process without the card (``python -m repro_torch.launch.dryrun``: a
     fake 256-rank group, meta DTensors). The launch counters are zeroed
     and an NCCL world of one rank is initialised (a ``file://``
@@ -382,6 +395,18 @@ TRAIN_HP = dict(lr=1e-3, warmup=2, total_steps=20)
 TRAIN_RUNS = (("qwen3_0_6b", 8, 512), ("granite_moe_1b_a400m", 8, 512),
               ("whisper_small", 4, 448))   # whisper's decoder holds 448
 TRAIN_TIMED = 5           # host-timed steps of each model
+# xLSTM-1.3b at full width (d 2048, 4 heads, its 7 mLSTM : 1 sLSTM period)
+# through make_train_step, cut to one period (8 of 48 blocks) at 4 x 64
+# tokens: its cells step through time on the host (~5 x 10^4 launches a
+# step, each profiled), and the period's recompute holds two (B, 4, 512,
+# 1024) f32 memory states a step in each mLSTM block (~28 GiB here, ~112
+# GiB at 4 x 256)
+XLSTM_TRAIN = ("xlstm_1_3b", 4, 64, 8)    # arch, batch, sequence, blocks
+# jamba's Mamba block at full width (d 8192, d_inner 16,384, N 16, chunk
+# 16), forward and backward on f32 copies of its weights: B x S tokens give
+# 2 GiB a (B, S, d_inner, N) f32 tensor
+MAMBA_BATCH, MAMBA_SEQ = 2, 1024
+MAMBA_TOL = 1e-4          # f32: x the plain version's largest magnitude
 # phase 10: ALS at Netflix's item count (data/synthetic.py's netflix
 # profile: 17,770 items, d 300); users cut from 480,189
 ALS_USERS = 20000
@@ -397,7 +422,8 @@ ALS_KERNELS = ("hash_encode", "hamming_scan", "bucket_gather",
                "fused_query", "fused_query_int8", "mips_topk")
 # phase 12: the mesh. Qwen3-0.6B at full width on a 1 x 1 card mesh (an
 # NCCL world of one), the sequence-sharded combine at its decode layer's
-# shape, the dry run's Qwen3 cells and the MIPS cell on the pod mesh
+# shape, the dry run's Qwen3 cells, xlstm's train_4k (its time loops
+# traced by trip) and the MIPS cell on the pod mesh
 MESH_ARCH = "qwen3_0_6b"
 MESH_TRAIN_STEPS = 3
 MESH_REQUESTS = 8         # (b): requests of 64 prompt + 16 greedy tokens
@@ -407,7 +433,8 @@ SEQ_SHARDS = 4            # (c): in-process sequence shards
 SEQ_B, SEQ_CACHE, SEQ_KV, SEQ_HD, SEQ_H = 8, 32768, 8, 128, 16
 SEQ_POS = 20000           # the write slot, in shard 2 of 4
 SEQ_ATOL, SEQ_RTOL = 1e-5, 1e-4   # f32, one divide against softmax's
-DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_CELLS = (("qwen3_0_6b", "train_4k"), ("qwen3_0_6b", "prefill_32k"),
+                ("qwen3_0_6b", "decode_32k"), ("xlstm_1_3b", "train_4k"))
 DRYRUN_TIMEOUT = 600      # s a dry-run cell's process may take
 MESH_KERNELS = ("hash_encode", "hamming_scan", "bucket_gather")
 MODEL_BATCH = 8           # requests of a generate call
@@ -2422,23 +2449,26 @@ def checkpoint_round_trip(state, label, card) -> None:
           f"s, {n} leaves equal the saved state bit for bit [{card}]")
 
 
-def train_model(arch, batch_size, seq, seed, dev, card):
+def train_model(arch, batch_size, seq, seed, dev, card, *, layers=None,
+                checkpoint=True, falling=False):
     """``TRAIN_TIMED`` steps of ``make_train_step`` on a fresh state of
-    ``arch`` at full width (1,500 seeded frames for the encoder-decoder):
-    host-clock step times ending in a synchronise, peak memory, one
-    profiled step (its device-busy share and its forward, backward and
-    optimizer split), a timed checkpoint write and restore. Fatal unless
-    every metric is finite, every param and gradient lives on the card and
-    (MoE) aux is at least 1 a MoE layer."""
+    ``arch`` at full width, its depth cut to ``layers`` blocks when given
+    (1,500 seeded frames for the encoder-decoder): host-clock step times
+    ending in a synchronise, peak memory, one profiled step (its
+    device-busy share and its forward, backward and optimizer split), and
+    with ``checkpoint`` a timed checkpoint write and restore. Fatal unless
+    every metric is finite, every param and gradient lives on the card,
+    (MoE) aux is at least 1 a MoE layer and, with ``falling``, the loss on
+    a held-out batch (the one after the timed steps) falls across them."""
     import math
 
     import torch
-    from repro_torch.configs.base import get_config
     from repro_torch.data.tokens import SyntheticCorpus
     from repro_torch.launch import train
+    from repro_torch.models import lm
     from repro_torch.tree import leaves
 
-    cfg = get_config(arch)
+    cfg = model_cfg(arch, layers)
     hp = train.TrainHParams(**TRAIN_HP)
     label = arch.split("_")[0]
     torch.cuda.empty_cache()
@@ -2458,6 +2488,11 @@ def train_model(arch, batch_size, seq, seed, dev, card):
         return b
 
     step_fn = train.make_train_step(cfg, hp)
+    if falling:
+        with torch.no_grad():
+            held_before = float(lm.train_loss(
+                state.params, batch_at(TRAIN_TIMED), cfg,
+                aux_weight=hp.aux_weight)[0])
     ms, metrics = [], []
     for s in range(TRAIN_TIMED):
         b = batch_at(s)
@@ -2485,7 +2520,15 @@ def train_model(arch, batch_size, seq, seed, dev, card):
         if min(per_layer) < 1.0:
             fail(f"train {label}: MoE aux < 1 a layer: {per_layer}")
     nxt = TRAIN_TIMED
-    _, _, grads = train.loss_and_grads(state.params, batch_at(nxt), cfg, hp)
+    held, _, grads = train.loss_and_grads(state.params, batch_at(nxt), cfg,
+                                          hp)
+    if falling:
+        first, last = held_before, float(held)
+        print(f"train: {label}: loss on a held-out batch {first:.6g} before "
+              f"the steps, {last:.6g} after (margin {first - last:.6g})")
+        if not last < first:
+            fail(f"train {label}: the held-out loss after the steps "
+                 f"({last}) is not below the one before ({first})")
     where = {t.device.type for t in leaves(state)}
     gdev = {g.device.type for g in leaves(grads)}
     del grads
@@ -2503,9 +2546,88 @@ def train_model(arch, batch_size, seq, seed, dev, card):
     step_split(prof, label, card)
     del prof
     torch.cuda.empty_cache()
-    checkpoint_round_trip(state, label, card)
+    if checkpoint:
+        checkpoint_round_trip(state, label, card)
     del state
     return p50
+
+
+def sequential_scan(a, b, h0, chunk):
+    """The plain version of ``ssm._ssm_scan_chunked``: one step a token,
+    ``h_t = a_t * h_{t-1} + b_t``, in time order (the chunk sets nothing
+    here)."""
+    import torch
+    hs, h = [], h0
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, 1), h
+
+
+def mamba_block_train(seed, dev, card):
+    """Jamba's Mamba block (``ssm.ssm_forward``) at full width, forward
+    and backward: the gradients of a seeded cotangent with respect to the
+    input and every weight, on f32 copies of seeded weights, B
+    ``MAMBA_BATCH`` x S ``MAMBA_SEQ``. Through the chunked scan (timed
+    after one warm-up call, peak memory), then once more with
+    ``sequential_scan`` in its place (the plain version, on no main path):
+    the output, the final state and every gradient within ``MAMBA_TOL``
+    of the plain version's largest magnitude. A whole jamba layer cannot
+    train on one card: its MoE's f32 AdamW moments alone are ~77 GB."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.models import ssm
+    cfg = model_cfg(JAMBA_ARCH, None)
+    d_inner, N = ssm._dims(cfg)[:2]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = {k: v.float().requires_grad_()
+         for k, v in ssm.ssm_init(g, cfg).items()}
+    shape = (MAMBA_BATCH, MAMBA_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=g, device=dev).requires_grad_()
+    cot = torch.randn(shape, generator=g, device=dev)
+    names = ["output", "final state", "grad x"] + [f"grad {k}" for k in p]
+
+    def run():
+        out, cache = ssm.ssm_forward(p, x, cfg)
+        grads = torch.autograd.grad(out, [x] + list(p.values()), cot)
+        return [out.detach(), cache.h.detach(), *grads]
+
+    def timed_run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t)
+
+    t_first = timed_run()[1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, ms = timed_run()
+    peak = torch.cuda.max_memory_allocated() - base
+    with mock.patch.object(ssm, "_ssm_scan_chunked", sequential_scan):
+        want, plain_ms = timed_run()
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"train: jamba Mamba block: {name} not finite")
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+        if rel > MAMBA_TOL:
+            fail(f"train: jamba Mamba block: {name} differs from the "
+                 f"sequential loop's by {rel:.3e} of its largest magnitude "
+                 f"(> {MAMBA_TOL})")
+    moe = cfg.moe
+    moments = 2 * 4 * 3 * cfg.d_model * moe.d_ff * moe.num_experts
+    print(f"train: jamba Mamba block d {cfg.d_model} d_inner {d_inner} N "
+          f"{N} chunk 16, batch {MAMBA_BATCH} x {MAMBA_SEQ}, f32 weights: "
+          f"forward + backward {ms:.1f} ms (first {t_first:.1f} ms), peak "
+          f"memory {peak / 2**30:.2f} GiB; the sequential loop {plain_ms:.1f}"
+          f" ms; output, final state and {len(names) - 2} gradients within "
+          f"{worst:.3e} of the loop's largest magnitudes (tolerance "
+          f"{MAMBA_TOL}); a whole layer cannot train on one card: its MoE's "
+          f"f32 AdamW moments alone are {moments / 1e9:.1f} GB [{card}]")
 
 
 def train_phase(dev, card):
@@ -2609,6 +2731,16 @@ def train_phase(dev, card):
         step_ms[arch] = train_model(arch, batch_size, seq, SEED + 191 + j,
                                     dev, card)
         torch.cuda.empty_cache()
+    t = time.perf_counter()
+    arch, batch_size, seq, layers = XLSTM_TRAIN
+    train_model(arch, batch_size, seq, SEED + 195, dev, card, layers=layers,
+                checkpoint=False, falling=True)
+    torch.cuda.empty_cache()
+    print(f"train: xlstm {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    mamba_block_train(SEED + 196, dev, card)
+    torch.cuda.empty_cache()
+    print(f"train: jamba Mamba block {time.perf_counter() - t:.1f} s")
     print(f"train: phase 9 {time.perf_counter() - t_phase:.1f} s")
     return step_ms
 
@@ -3002,15 +3134,16 @@ def analysis_phase(ops, dev, card, paths, step_ms, decode_ms):
 
 
 def start_dryrun_cells(out_dir):
-    """The dry run's Qwen3 cells on the pod mesh, each in its own process
-    (``python -m repro_torch.launch.dryrun``; no card: a fake 256-rank
-    group on meta tensors), started together. Returns {cell: process}."""
+    """The dry run's ``DRYRUN_CELLS`` on the pod mesh, each in its own
+    process (``python -m repro_torch.launch.dryrun``; no card: a fake
+    256-rank group on meta tensors), started together. Returns {(arch,
+    shape): process}."""
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
     procs = {}
-    for cell in DRYRUN_CELLS:
-        procs[cell] = subprocess.Popen(
+    for arch, shape in DRYRUN_CELLS:
+        procs[arch, shape] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             MESH_ARCH, "--shape", cell, "--mesh", "pod", "--out",
+             arch, "--shape", shape, "--mesh", "pod", "--out",
              str(out_dir)], env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
     return procs
@@ -3042,20 +3175,21 @@ def collect_dryrun_cells(procs, out_dir, card):
     record; fatal if a cell failed."""
     import torch
     cap = torch.cuda.get_device_properties(0).total_memory
-    for cell, proc in procs.items():
+    for (arch, cell), proc in procs.items():
         try:
             out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.communicate()
-            fail(f"mesh: dry-run cell {cell} ran past {DRYRUN_TIMEOUT} s")
-        path = out_dir / f"{MESH_ARCH}__{cell}__pod.json"
+            fail(f"mesh: dry-run cell {arch} {cell} ran past "
+                 f"{DRYRUN_TIMEOUT} s")
+        path = out_dir / f"{arch}__{cell}__pod.json"
         if proc.returncode != 0 or not path.exists():
-            fail(f"mesh: dry-run cell {cell} exited {proc.returncode}: "
-                 f"{out[-1500:]}")
+            fail(f"mesh: dry-run cell {arch} {cell} exited "
+                 f"{proc.returncode}: {out[-1500:]}")
         rec = json.loads(path.read_text())
         if not rec.get("ok"):
-            fail(f"mesh: dry-run cell {cell}: {rec.get('error')}")
+            fail(f"mesh: dry-run cell {arch} {cell}: {rec.get('error')}")
         rec["card_bytes"] = cap
         print_cell(rec, card)
 
@@ -3214,8 +3348,8 @@ def elastic_case(dev, card):
 
 
 def mesh_phase(ops, dev, card):
-    """Phase 12: the mesh on the card. The dry run's Qwen3 cells start in
-    their own processes; then (a) train and (b) serve Qwen3-0.6B at full
+    """Phase 12: the mesh on the card. The dry run's ``DRYRUN_CELLS``
+    (Qwen3's three, xlstm's train_4k) start in their own processes; then (a) train and (b) serve Qwen3-0.6B at full
     width on a 1 x 1 mesh of an NCCL world of one against the meshless
     steps, (c) the sequence-sharded combine, (d) the MIPS cell on the pod
     mesh on the card and the cells' records, (e) ``elastic_recover``.

@@ -92,10 +92,13 @@ def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                    hp: TrainHParams):
     """(loss, {"ce", "aux"}, grads): ``lm.train_loss`` and its gradient
     with respect to every param (each in its param's dtype), as a tree of
-    the params' structure."""
+    the params' structure. A param the loss does not use (xLSTM's
+    ``norm2`` with ``d_ff = 0``) gets a zero gradient, as ``jax.grad``
+    gives it."""
     live, leaves, regroup = grad_leaves(params)
     loss, metrics = lm.train_loss(live, batch, cfg, aux_weight=hp.aux_weight)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             regroup(grads))
 

@@ -8,7 +8,7 @@ their tensors on the generator's device.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -77,6 +77,65 @@ def unstack(tree, n: int) -> List:
     return list(torch.unbind(tree, 0))
 
 
+def scan(step: Callable, carry, xs, *, dim: int = 1):
+    """The port's ``jax.lax.scan`` over dimension ``dim`` of ``xs`` (a
+    tensor, or a tuple of tensors of one length there): ``step(carry,
+    x_t) -> (carry, y_t)`` for each slice ``x_t`` in order; returns the
+    last carry and the ``y_t`` stacked along ``dim``.
+
+    On real tensors it is that loop. On ``meta`` tensors (the dry run)
+    it does not run every trip: as the reference lowers one while body
+    and counts it once a trip, the body is traced for the first trip, one
+    middle trip standing for the ``length - 2`` middle ones, and the last.
+    The middle trip runs inside ``parallel.collectives.repeat(length -
+    2)`` and its autograd nodes are marked the same
+    (``repeat_backward``), so the collective recorder notes what the loop
+    and its backward issue as often as the eager loop issues it: the
+    first trip is the only one whose carry is the initial state, the last
+    the only one whose carry gets no gradient from a next trip. The
+    middle trip's ``y`` is expanded to its trips along ``dim``."""
+    many = isinstance(xs, (tuple, list))
+    seq = tuple(xs) if many else (xs,)
+    length = seq[0].shape[dim]
+
+    if not seq[0].is_meta or length < 3:
+        # one unbind a tensor: its backward stacks the slices' gradients
+        # once, where a select a step would fill a whole zero gradient
+        # each (O(length^2) bytes)
+        ys = []
+        for x_t in zip(*(x.unbind(dim) for x in seq)):
+            carry, y = step(carry, x_t if many else x_t[0])
+            ys.append(y)
+        return carry, torch.stack(ys, dim)
+    from repro_torch.parallel import collectives
+
+    def at(t):
+        sl = tuple(x.select(dim, t) for x in seq)
+        return sl if many else sl[0]
+
+    carry, first = step(carry, at(0))
+    since = collectives.autograd_mark()
+    with collectives.repeat(length - 2):
+        carry, mid = step(carry, at(1))
+    if torch.is_grad_enabled():
+        collectives.repeat_backward(length - 2, _tensors(carry) + [mid],
+                                    since, collectives.autograd_mark())
+    carry, last = step(carry, at(length - 1))
+    shape = list(mid.unsqueeze(dim).shape)
+    shape[dim] = length - 2
+    return carry, torch.cat([first.unsqueeze(dim),
+                             mid.unsqueeze(dim).expand(shape),
+                             last.unsqueeze(dim)], dim)
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
     """RMSNorm in f32, output back in the input dtype."""
@@ -84,6 +143,38 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(x.dtype)
+
+
+def _settled_dtensor(x):
+    """``x`` with its partial sums reduced if it is a DTensor (the one
+    reduction the fused op would do), else None."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return None
+    from repro_torch.parallel.sharding import settled
+    return settled(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``softplus(x)``. On a DTensor in the reference's elementary form,
+    ``max(x, 0) + log1p(exp(-|x|))`` (jax's ``logaddexp(x, 0)``), its
+    partial sums reduced once first: DTensor has no sharding rule for
+    ``softplus_backward`` in every torch."""
+    d = _settled_dtensor(x)
+    if d is None:
+        return torch.nn.functional.softplus(x)
+    return torch.clamp_min(d, 0.0) + torch.log1p(torch.exp(-torch.abs(d)))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``logsigmoid(x)``. On a DTensor in the reference's form,
+    ``-softplus(-x) = min(x, 0) - log1p(exp(-|x|))``, its partial sums
+    reduced once first: DTensor has no sharding rule for
+    ``log_sigmoid_backward``."""
+    d = _settled_dtensor(x)
+    if d is None:
+        return torch.nn.functional.logsigmoid(x)
+    return torch.clamp_max(d, 0.0) - torch.log1p(torch.exp(-torch.abs(d)))
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -5,13 +5,14 @@ The diagonal selective recurrence
 
     h_t = exp(dt_t * A) ⊙ h_{t-1} + dt_t * B_t * x_t,   y_t = C_t · h_t
 
-is a first-order linear recurrence. The reference runs it chunked: a
-``jax.lax.associative_scan`` (log-depth tree) inside each chunk of length
-``Lc`` and a ``lax.scan`` carrying the (B, d_inner, N) boundary state
-between chunks. The port keeps the chunk length and its ``S % chunk``
-rule, and runs the recurrence as one sequential loop over time: the same
-products taken in time order, which differ from the tree's order by f32
-rounding only.
+is a first-order linear recurrence. It runs chunked, as the reference
+runs it: an associative scan (log-depth) inside each chunk of length
+``Lc`` and a scan (``models/common.scan``, the reference's ``lax.scan``)
+carrying the (B, d_inner, N) boundary state between chunks. The port
+scans all S / Lc chunks at once from a zero state, then carries the
+boundary state across them, ``h = A_t * h + H_t``, in S / Lc steps; the
+reference folds the carry into each chunk's first step before its scan.
+The two differ in where the carry enters, and so in f32 rounding only.
 
 Decode keeps (conv window, h state) per layer: O(1) per token.
 """
@@ -24,7 +25,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import PARAM_DTYPE, dense_init, pad
+from repro_torch.models.common import (PARAM_DTYPE, dense_init, pad, scan,
+                                       softplus)
 from repro_torch.parallel.sharding import settled
 
 
@@ -65,28 +67,49 @@ def ssm_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor, dim: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of the pairs (a_t, b_t) along ``dim`` under the
+    reference's combine ``(a1, b1), (a2, b2) -> (a1 * a2, a2 * b1 + b2)``
+    (Hillis-Steele: log2 of the length steps, each combining every element
+    with the one ``k`` before it). Returns (the products A_t of a up to t,
+    the states H_t from a zero state)."""
+    n = a.shape[dim]
+    k = 1
+    while k < n:
+        a_hi, a_lo = a.narrow(dim, k, n - k), a.narrow(dim, 0, n - k)
+        b_hi, b_lo = b.narrow(dim, k, n - k), b.narrow(dim, 0, n - k)
+        b = torch.cat([b.narrow(dim, 0, k), a_hi * b_lo + b_hi], dim)
+        a = torch.cat([a.narrow(dim, 0, k), a_lo * a_hi], dim)
+        k *= 2
+    return a, b
+
+
 def _ssm_scan_chunked(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
                       chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """First-order recurrence h_t = a_t * h_{t-1} + b_t, chunked.
 
-    a, b: (B, S, d_inner, N) f32; h0: (B, d_inner, N). The port runs one
-    sequential loop straight through the chunks: a chunk whose carry is
-    folded into its first step, as the reference's, is that loop's own
-    state, so the chunk length only sets the ``S % chunk`` rule (the
-    reference runs an associative scan inside each chunk; the f32
-    products differ in order only). Returns (all h states (B, S,
-    d_inner, N), final h)."""
-    S = a.shape[1]
+    a, b: (B, S, d_inner, N) f32; h0: (B, d_inner, N). Every chunk's
+    associative scan runs at once; the boundary state then crosses the
+    S / chunk chunks through ``scan``, and each chunk's states are
+    ``A_t * h_in + H_t``. Returns (all h states (B, S, d_inner, N),
+    final h)."""
+    B, S, D, N = a.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"sequence length S={S} must be a multiple of "
                          f"chunk={chunk}")
-    hs = torch.empty_like(b)
-    h = h0
-    for t in range(S):
-        h = a[:, t] * h + b[:, t]
-        hs[:, t] = h
-    return hs, h
+    nc = S // chunk
+    A, H = _assoc_scan(a.reshape(B, nc, chunk, D, N),
+                       b.reshape(B, nc, chunk, D, N), 2)
+
+    def carry(h, ends):
+        a_end, h_end = ends
+        return a_end * h + h_end, h
+
+    h_last, h_in = scan(carry, h0, (A[:, :, -1], H[:, :, -1]))
+    hs = A * h_in[:, :, None] + H
+    return hs.reshape(B, S, D, N), h_last
 
 
 def _causal_conv(xp: torch.Tensor, w: torch.Tensor, S: int
@@ -114,8 +137,7 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     # on a mesh the projection sums d_inner's shards here (it is small)
     proj = settled((xi @ p["x_proj"]).to(f32))
     dt, Bm, Cm = torch.split(proj, [dt_rank, N, N], dim=-1)
-    dt = torch.nn.functional.softplus(dt @ p["dt_proj"].to(f32)
-                                      + p["dt_bias"])
+    dt = softplus(dt @ p["dt_proj"].to(f32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])                              # (d_inner, N)
     xf = xi.to(f32)
     a = torch.exp(dt[..., None] * A)                        # (B,S,D,N)
@@ -145,8 +167,7 @@ def ssm_decode(p, x: torch.Tensor, cache: SSMCache, cfg: ModelConfig
     # on a mesh the projection sums d_inner's shards here (it is small)
     proj = settled((xi @ p["x_proj"]).to(f32))
     dt, Bm, Cm = torch.split(proj, [dt_rank, N, N], dim=-1)
-    dt = torch.nn.functional.softplus(dt @ p["dt_proj"].to(f32)
-                                      + p["dt_bias"])
+    dt = softplus(dt @ p["dt_proj"].to(f32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xf = xi.to(f32)
     a = torch.exp(dt[..., None] * A)                        # (B, D, N)

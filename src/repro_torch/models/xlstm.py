@@ -10,9 +10,10 @@ mLSTM cell (per head, stabilized exponential gating):
     h_t = (C_t^T q_t) / max(|n_t^T q_t|, 1)
 
 sLSTM keeps scalar memories with a block-diagonal (per-head)
-hidden-to-hidden recurrence. Both run as a Python loop over time (the
-reference's ``lax.scan``), the stabiliser ``m`` starting at -1e30;
-recurrent decode is O(1) per token. The reference's simplifications are
+hidden-to-hidden recurrence. Both run step by step over time through
+``models/common.scan`` (the reference's ``lax.scan``; traced by trip on
+``meta`` tensors), the stabiliser ``m`` starting at -1e30; recurrent
+decode is O(1) per token. The reference's simplifications are
 kept: dense per-head q/k/v projections, and the post-sLSTM MLP folded
 into the block's gated output path.
 """
@@ -25,8 +26,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (PARAM_DTYPE, dense_init,
-                                       merge_heads, pad, rms_norm,
-                                       split_heads)
+                                       log_sigmoid, merge_heads, pad,
+                                       rms_norm, scan, split_heads)
 
 
 class MLSTMCache(NamedTuple):
@@ -116,7 +117,7 @@ def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     v = split_heads(xm_raw @ p["w_v"], H)
     gates = xc.to(f32) @ p["w_if"] + p["b_if"]
     ig, fg_raw = gates[..., :H], gates[..., H:]
-    fg = torch.nn.functional.logsigmoid(fg_raw)   # forget gate in (0, 1)
+    fg = log_sigmoid(fg_raw)                      # forget gate in (0, 1)
 
     if cache is None:
         state = (torch.zeros((B, H, d_qk, d_v), dtype=f32, device=x.device),
@@ -124,12 +125,13 @@ def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
                  torch.full((B, H), M_INIT, dtype=f32, device=x.device))
     else:
         state = (cache.C, cache.n, cache.m)
-    hs = []
-    for t in range(S):
-        state, h = _mlstm_cell(q[:, t].to(f32), k[:, t].to(f32),
-                               v[:, t].to(f32), ig[:, t], fg[:, t], state)
-        hs.append(h)
-    h = merge_heads(torch.stack(hs, dim=1))                 # (B,S,H*dv)
+
+    def step(s, inp):
+        qt, kt, vt, it, ft = inp
+        return _mlstm_cell(qt.to(f32), kt.to(f32), vt.to(f32), it, ft, s)
+
+    state, hs = scan(step, state, (q, k, v, ig, fg))
+    h = merge_heads(hs)                                     # (B,S,H*dv)
     h = rms_norm(h.to(x.dtype), p["gn"], cfg.norm_eps)
     out = (h * torch.nn.functional.silu(z)) @ p["w_out"]
     conv_tail = padded[:, S:S + D_CONV - 1]   # last D_CONV-1 raw conv inputs
@@ -178,7 +180,7 @@ def _slstm_cell(p, xt, state, H):
     zt, it, ft, ot = torch.chunk(g, 4, dim=-1)
     zt = torch.tanh(zt)
     ot = torch.sigmoid(ot)
-    fg = torch.nn.functional.logsigmoid(ft)
+    fg = log_sigmoid(ft)
     m_new = torch.maximum(fg + m, it)
     fp = torch.exp(fg + m - m_new)
     ip = torch.exp(it - m_new)
@@ -193,7 +195,7 @@ def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
                   ) -> Tuple[torch.Tensor, SLSTMCache]:
     """Full-sequence sLSTM block. x: (B, S, d). Returns new state
     tensors."""
-    B, S, d = x.shape
+    B, _, d = x.shape
     f32 = torch.float32
     if cache is None:
         state = (torch.zeros((B, d), dtype=f32, device=x.device),
@@ -202,12 +204,9 @@ def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
                  torch.zeros((B, d), dtype=f32, device=x.device))
     else:
         state = (cache.c, cache.n, cache.m, cache.h)
-    xf = x.to(f32)
-    hs = []
-    for t in range(S):
-        state, h = _slstm_cell(p, xf[:, t], state, cfg.n_heads)
-        hs.append(h)
-    h = torch.stack(hs, dim=1).to(x.dtype)                 # (B, S, d)
+    state, hs = scan(lambda s, xt: _slstm_cell(p, xt, s, cfg.n_heads),
+                     state, x.to(f32))
+    h = hs.to(x.dtype)                                      # (B, S, d)
     h = rms_norm(h, p["gn"], cfg.norm_eps)
     z = torch.nn.functional.silu(x @ p["w_z"])
     out = (h * z) @ p["w_out"]

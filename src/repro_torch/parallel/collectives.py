@@ -26,14 +26,29 @@ Per-device wire bytes use the reference's ring-algorithm factors:
 
 DTensor and XLA's SPMD partitioner place collectives differently, so the
 counts are not the reference's.
+
+A loop body traced once for many trips (``models/common.scan`` on
+``meta`` tensors, as the reference's ``lax.scan`` lowers one while body)
+runs inside :func:`repeat`, and its autograd nodes are marked by
+:func:`repeat_backward`: each collective the body or its backward issues
+is noted with the trip count as its ``multiplier`` (nested loops
+multiply, as ``hlo_analysis._multipliers`` multiplies nested whiles), and
+its wire bytes are the multiplied ones, as the reference's are. Counts
+are the sum of the multipliers: an eager loop's collectives, one entry a
+trip, and the traced body's add up alike.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import contextlib
+from typing import Dict, Iterator, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+#: the trip counts of the enclosing trace-once loop bodies, outermost first
+_TRIPS: List[int] = []
+
 
 def wire_bytes(op: str, in_bytes: int, out_bytes: int, g: int) -> float:
     """Per-device ring wire bytes of one collective over ``g`` members."""
@@ -52,33 +67,102 @@ def wire_bytes(op: str, in_bytes: int, out_bytes: int, g: int) -> float:
     return float(out_bytes)
 
 
-def record(op: str, in_bytes: int, out_bytes: int, g: int
-           ) -> Dict[str, float]:
-    """One collective's entry, the reference's keys (an eager run issues
-    each collective it counts: its multiplier is 1)."""
+def record(op: str, in_bytes: int, out_bytes: int, g: int,
+           multiplier: int = 1) -> Dict[str, float]:
+    """One collective's entry, the reference's keys: issued
+    ``multiplier`` times (a trace-once loop body's trip count; 1 for a
+    collective an eager run issues once), its wire bytes multiplied."""
     return {"op": op, "out_bytes": out_bytes, "in_bytes": in_bytes,
-            "group": g, "multiplier": 1,
+            "group": g, "multiplier": multiplier,
             "wire_bytes": wire_bytes(op, in_bytes or out_bytes, out_bytes,
-                                     g)}
+                                     g) * multiplier}
 
 
 def summarize_collectives(colls: List[Dict]) -> Dict[str, float]:
-    """Wire bytes by op, their total and the count of collectives."""
+    """Wire bytes by op, their total and the count of collectives (each
+    entry counted its multiplier's times)."""
     by_op: Dict[str, float] = {}
     for c in colls:
         by_op[c["op"]] = by_op.get(c["op"], 0.0) + c["wire_bytes"]
     total = sum(by_op.values())
     by_op["total_wire_bytes"] = total
-    by_op["count"] = float(len(colls))
+    by_op["count"] = float(sum(c.get("multiplier", 1) for c in colls))
     return by_op
 
 
 def counts_by_op(colls: List[Dict]) -> Dict[str, int]:
-    """The number of collectives of each op."""
+    """The number of collectives of each op (each entry counted its
+    multiplier's times)."""
     out: Dict[str, int] = {}
     for c in colls:
-        out[c["op"]] = out.get(c["op"], 0) + 1
+        out[c["op"]] = out.get(c["op"], 0) + int(c.get("multiplier", 1))
     return out
+
+
+def trips() -> int:
+    """The product of the enclosing :func:`repeat` contexts' trip counts
+    (1 outside any)."""
+    n = 1
+    for k in _TRIPS:
+        n *= k
+    return n
+
+
+@contextlib.contextmanager
+def repeat(n: int) -> Iterator[None]:
+    """While active, every collective is noted ``n`` times (a loop body
+    traced once for ``n`` trips); nested contexts multiply."""
+    _TRIPS.append(int(n))
+    try:
+        yield
+    finally:
+        _TRIPS.pop()
+
+
+def autograd_mark() -> int:
+    """The sequence number the next autograd node of this thread will
+    take: nodes are numbered in creation order, so those a body creates
+    lie between the marks taken before and after it."""
+    with torch.enable_grad():
+        probe = torch.empty(0, requires_grad=True).view(0)
+    return probe.grad_fn._sequence_nr() + 1
+
+
+#: an autograd node's ``metadata`` key holding its trip count
+TRIPS_KEY = "repro.collectives.trips"
+
+
+def repeat_backward(n: int, roots, since: int, until: int) -> int:
+    """Marks the backward of a loop body traced once for ``n`` trips:
+    every autograd node that ``roots`` (the body's output tensors) reach
+    and whose sequence number lies in ``[since, until)``
+    (:func:`autograd_mark` before and after the body) gets ``n`` in its
+    ``metadata`` (multiplied into a mark already there: nested bodies).
+    While a marked node runs (its function and the accumulation of its
+    outputs into the gradients of the nodes before it), the recorder notes
+    each collective ``n`` times. Nodes of the graph before the body (its
+    inputs' and the leaves') are left alone. Returns the number of nodes
+    marked."""
+    stack = [t.grad_fn for t in roots
+             if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+    seen = set()
+    while stack:
+        node = stack.pop()
+        if node is None or id(node) in seen:
+            continue
+        if not since <= node._sequence_nr() < until:
+            continue
+        seen.add(id(node))
+        node.metadata[TRIPS_KEY] = node.metadata.get(TRIPS_KEY, 1) * int(n)
+        stack.extend(f for f, _ in node.next_functions)
+    return len(seen)
+
+
+def _backward_trips() -> int:
+    """The trip count marked on the autograd node running now (1 outside
+    a backward or on an unmarked node)."""
+    node = torch._C._current_autograd_node()
+    return 1 if node is None else node.metadata.get(TRIPS_KEY, 1)
 
 
 def _nbytes(x) -> int:
@@ -131,7 +215,8 @@ _C10D = {
 
 class CollectiveRecorder(TorchDispatchMode):
     """Records every collective dispatched while active in
-    :attr:`collectives` (the reference's entry keys)."""
+    :attr:`collectives` (the reference's entry keys), with the trip count
+    of the trace-once loop bodies it was issued in as its multiplier."""
 
     def __init__(self):
         super().__init__()
@@ -154,7 +239,8 @@ class CollectiveRecorder(TorchDispatchMode):
         out_b = _nbytes(out if ns == "_c10d_functional" else args[0])
         if op == "all-gather" and ns == "_c10d_functional":
             out_b = in_b * g
-        self.collectives.append(record(op, in_b, out_b, g))
+        self.collectives.append(record(op, in_b, out_b, g,
+                                       trips() * _backward_trips()))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor

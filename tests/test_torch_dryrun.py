@@ -26,7 +26,7 @@ import types
 import jax
 import pytest
 import torch
-from _torch_parity import reference_dryrun
+from _torch_parity import reference_dryrun, run_script
 
 from repro.configs import base as jbase
 from repro.data import tokens as jtokens
@@ -216,10 +216,61 @@ def test_mips_cell_runs_the_sharded_engine_on_the_cpu(tmp_path):
 
 def test_all_records_a_cell_past_its_timeout(tmp_path):
     """``--all``'s runner kills a cell's process past its time and
-    records the cell as failed (xlstm's prefill at 32,768 steps of its
-    sequential loop takes far longer than 3 s)."""
-    ok = dryrun.run_cells([("xlstm_1_3b", "prefill_32k", "pod")],
+    records the cell as failed (Qwen3's prefill of 32 x 32,768 tokens
+    takes ~55 s of host time on meta, far longer than 3 s)."""
+    ok = dryrun.run_cells([("qwen3_0_6b", "prefill_32k", "pod")],
                           str(tmp_path), jobs=1, timeout=3)
-    rec = json.load(open(tmp_path / "xlstm_1_3b__prefill_32k__pod.json"))
+    rec = json.load(open(tmp_path / "qwen3_0_6b__prefill_32k__pod.json"))
     assert not ok and not rec["ok"]
     assert rec["error"] == "timed out after 3 s"
+
+
+RECURRENT_CELLS = r"""
+import json, logging, time
+logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+from repro_torch.configs.base import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_process_group, make_production_mesh
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding as shd
+
+out = {}
+with fake_process_group(256):
+    mesh = make_production_mesh()
+    for arch in ("xlstm_1_3b", "jamba_1_5_large_398b"):
+        cfg = get_config(arch).reduced()
+        for shape in ("train_4k", "prefill_32k"):
+            fn, args, _ = dryrun.build_cell(cfg, shape, mesh)
+            t = time.time()
+            with coll.CollectiveRecorder() as rec:
+                res = fn(*args)
+            out[f"{arch}:{shape}"] = {
+                "run_s": time.time() - t,
+                "argument_bytes": shd.local_bytes(args),
+                "output_bytes": shd.local_bytes(res),
+                "counts": coll.counts_by_op(rec.collectives),
+                "summary": coll.summarize_collectives(rec.collectives)}
+print(json.dumps(out))
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def recurrent_cells():
+    return run_script(RECURRENT_CELLS, timeout=600)
+
+
+@pytest.mark.parametrize("arch", ["xlstm_1_3b", "jamba_1_5_large_398b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_recurrent_cells_finish_and_record_collectives(arch, shape):
+    """xlstm's and jamba's train and prefill cells, their time loops
+    traced by trip (4,096 and 32,768 steps; Mamba's 256 and 2,048 chunk
+    carries), at ``reduced()`` widths on the 16 x 16 pod mesh's 256 fake
+    ranks: each finishes and records its bytes and collectives, every
+    wire byte counted with its trips."""
+    got = recurrent_cells()[f"{arch}:{shape}"]
+    assert got["argument_bytes"] > 0 and got["output_bytes"] > 0
+    assert sum(got["counts"].values()) == got["summary"]["count"] > 0
+    assert got["summary"]["total_wire_bytes"] > 0
+    if shape == "train_4k":
+        assert got["counts"]["all-gather"] > 0
+        assert got["counts"]["reduce-scatter"] > 0

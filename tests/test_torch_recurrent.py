@@ -5,9 +5,12 @@ the same numpy inputs and carried weights, at ``reduced()`` sizes
 
 The blocks run on f32 copies of the weights, where the point is the
 algorithm: states within rtol 1e-5 and atol 1e-6 (f32 products taken in
-another order: the port's scan is a sequential loop where the reference
-runs an associative scan, and the projections are summed in another
-order), outputs within 1e-5. The bf16 blocks as published are held to
+another order: the port's chunked scan brings the carry into each chunk
+after its associative scan where the reference folds it in before, and
+the projections are summed in another order), outputs within 1e-5. The
+chunked scan's gradients are held against ``jax.grad`` of the
+reference's within rtol 1e-5 and atol 1e-5 (f32 sums of up to S terms
+in another order; the gradients reach ~25). The bf16 blocks as published are held to
 3e-2 on their outputs (bf16 rounds at other places in the two
 frameworks). A decode step continues a full-sequence call from its cache,
 in both packages.
@@ -136,15 +139,24 @@ def test_decode_continues_the_forward(kind):
                                    atol=STATE_ATOL, err_msg=f)
 
 
-@pytest.mark.parametrize("S_,chunk", [(16, 16), (32, 8), (12, 16), (9, 4)])
-def test_ssm_scan_chunked_matches_reference(S_, chunk):
-    """The chunked recurrence on f32 (decay, value) pairs: every state and
-    the last within rtol 1e-5, atol 1e-6; S % chunk != 0 raises the
-    reference's ValueError (a chunk longer than S is cut to S)."""
+GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-5
+
+
+def _scan_inputs(S_, chunk):
     rng = np.random.default_rng(S_ + chunk)
     a = rng.uniform(0.5, 1.0, (2, S_, 3, 4)).astype(np.float32)
     b = rng.standard_normal((2, S_, 3, 4)).astype(np.float32)
     h0 = rng.standard_normal((2, 3, 4)).astype(np.float32)
+    return a, b, h0
+
+
+@pytest.mark.parametrize("S_,chunk", [(16, 16), (32, 8), (12, 16), (9, 4),
+                                      (48, 16), (256, 16), (64, 64)])
+def test_ssm_scan_chunked_matches_reference(S_, chunk):
+    """The chunked recurrence on f32 (decay, value) pairs: every state and
+    the last within rtol 1e-5, atol 1e-6; S % chunk != 0 raises the
+    reference's ValueError (a chunk longer than S is cut to S)."""
+    a, b, h0 = _scan_inputs(S_, chunk)
     if S_ % min(chunk, S_):
         with pytest.raises(ValueError, match="multiple of"):
             jssm._ssm_scan_chunked(jnp.asarray(a), jnp.asarray(b),
@@ -159,6 +171,32 @@ def test_ssm_scan_chunked_matches_reference(S_, chunk):
                                rtol=STATE_RTOL, atol=STATE_ATOL)
     np.testing.assert_allclose(ph.numpy(), np.asarray(jh), rtol=STATE_RTOL,
                                atol=STATE_ATOL)
+
+
+@pytest.mark.parametrize("S_,chunk", [(16, 16), (32, 8), (48, 16),
+                                      (256, 16), (64, 64)])
+def test_ssm_scan_chunked_gradients_match_reference(S_, chunk):
+    """The gradients of a weighted sum of every state and the last with
+    respect to the decays, the values and the initial state, against
+    ``jax.grad`` of the reference's scan: within rtol 1e-5, atol 1e-5."""
+    a, b, h0 = _scan_inputs(S_, chunk)
+    rng = np.random.default_rng(S_ * chunk)
+    w = rng.standard_normal(a.shape).astype(np.float32)
+    w_last = rng.standard_normal(h0.shape).astype(np.float32)
+
+    def jloss(a, b, h0):
+        hs, h = jssm._ssm_scan_chunked(a, b, h0, chunk)
+        return jnp.sum(hs * w) + jnp.sum(h * w_last)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0))
+    args = [_t(x).requires_grad_() for x in (a, b, h0)]
+    hs, h = ssm._ssm_scan_chunked(*args, chunk)
+    (torch.sum(hs * _t(w)) + torch.sum(h * _t(w_last))).backward()
+    for name, x, g in zip(("a", "b", "h0"), args, want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(g),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=name)
 
 
 def test_ssm_forward_needs_whole_chunks():

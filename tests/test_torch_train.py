@@ -37,6 +37,7 @@ carried by ``convert``.
 """
 
 import copy
+import dataclasses
 import functools
 
 import jax
@@ -61,8 +62,8 @@ from repro_torch.models import lm
 
 ARCHS = ("qwen3_0_6b", "granite_moe_1b_a400m", "internvl2_1b",
          "whisper_small", "minicpm3_4b")
-# the other five configs, held to the loss and gradients alone (Mamba and
-# xLSTM train through their sequential loops on the CPU)
+# the other five configs, held to the loss and gradients alone (Mamba's
+# chunk carry and xLSTM's cells step through time on the CPU)
 LOSS_ARCHS = ARCHS + ("qwen2_1_5b", "gemma2_27b", "llama4_scout_17b_a16e",
                       "jamba_1_5_large_398b", "xlstm_1_3b")
 B, S = 2, 16
@@ -156,6 +157,33 @@ def test_train_loss_and_grads_equal_the_reference(arch):
                                    rtol=LOSS_RTOL, atol=1e-7)
     if cfg.moe is not None:
         assert float(metrics["aux"]) >= 1.0 - 1e-6
+    _assert_grads(grads, jg, GRAD_RTOL, GRAD_ATOL)
+
+
+def test_an_unused_param_gets_a_zero_gradient():
+    """xLSTM as published has no MLP (``d_ff = 0``), so its blocks'
+    ``norm2`` takes no part in the loss: ``jax.grad`` gives it zeros, and
+    so does the port (every other gradient under the file's bounds)."""
+    jcfg = dataclasses.replace(jbase.get_config("xlstm_1_3b").reduced(),
+                               d_ff=0)
+    cfg = dataclasses.replace(base.get_config("xlstm_1_3b").reduced(),
+                              d_ff=0)
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    pp = convert.lm_params_from_tree(jax.tree.map(np.asarray, jp),
+                                     device="cpu")
+    batch = _batch(cfg)
+    (jloss, _), jg = jax.value_and_grad(
+        lambda p, b: jlm.train_loss(p, b, jcfg), has_aux=True)(
+            jp, jax.tree.map(jnp.asarray, batch))
+    loss, _, grads = _port_loss_and_grads(pp, batch, cfg)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
+    unused = [k for k, g in tree.flatten_with_paths(grads)
+              if "norm2" in k]
+    assert unused
+    for k, g in tree.flatten_with_paths(grads):
+        if "norm2" in k:
+            assert g.dtype == torch.float32 and not g.any(), k
     _assert_grads(grads, jg, GRAD_RTOL, GRAD_ATOL)
 
 
