@@ -541,6 +541,15 @@ def profiled(run, reps: int = 1):
     return prof, wall_us
 
 
+def is_range(e) -> bool:
+    """A ``record_function`` range: the profiler's step, or a stage span of
+    the port (``repro.*``; every span site opens one while the profiler
+    records). Its device-side row spans the kernels it holds, so it is no
+    device work of its own."""
+    return (getattr(e, "is_user_annotation", False) is True
+            or e.key.startswith(("ProfilerStep", "repro.")))
+
+
 def profile_batch(label, run, top: int = 8):
     """Where one query batch (or one kernel call) spends device time: the
     device kernels with the most time under ``torch.profiler``, and the
@@ -554,10 +563,10 @@ def profile_batch(label, run, top: int = 8):
                 or getattr(e, "self_cuda_time_total", 0))
 
     # kernel events only: an operator's row repeats its kernels' time, and
-    # the step's own row spans the whole step
+    # a range's row (the step's, a stage's) spans the kernels it holds
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA
-                      and not e.key.startswith("ProfilerStep")),
+                      and not is_range(e)),
                      key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in kernels)
     if busy <= 0:
@@ -2368,7 +2377,7 @@ def step_split(prof, label, card) -> None:
               if not e.name.startswith("ProfilerStep")]
     host = [e.time_range for e in events if e.device_type == DeviceType.CPU]
     kernels = [e.time_range for e in events
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA and not is_range(e)]
     engine = [e.time_range for e in events if e.device_type ==
               DeviceType.CPU and e.name.startswith("autograd::engine::")]
     if not host or not engine or not kernels:

@@ -27,8 +27,20 @@ named and costed as the reference's (``repro.engine.hash_encode``,
 ``dense_match``/``dense_select``, ``re_rank``, ``top_k``, under
 ``repro.engine.query``), synchronised at its end, and each batch records
 ``repro.engine.queries``, ``probe_width`` and, under budgets,
-``probes_used.range{j}``. Without one, nothing is synchronised or
-computed for it.
+``probes_used.range{j}`` (the budget, as the reference records it).
+Child spans of the port's own (``obs.cost.PORT_STAGES``, uncosted, each
+synchronised on what it produces) split two stages:
+``repro.engine.directory_scan`` (the match counter) and ``rank_sort``
+(the rank gather and stable argsort) inside ``directory_match``;
+``repro.engine.runs`` (``_planned_runs``/``_probe_runs``: the per-range
+take and the run offsets) and ``fused_score`` (the ``fused_query``
+launch and the id gather) inside ``fused_query``. A call that names a
+recall target plans inside ``repro.engine.query``, in
+``repro.planner.resolve_budgets`` (host only, no sync). Without a
+tracker nothing is synchronised or computed for it; while
+``torch.profiler`` records, every one of these spans is also a
+``record_function`` range of the same name (:mod:`repro_torch.obs.trace`),
+tracked or not.
 """
 
 from __future__ import annotations
@@ -93,9 +105,12 @@ def _directory_order(buckets: BucketIndex, q_codes: torch.Tensor,
     with costed_span(tracker, "repro.engine.directory_match",
                      cost.directory_match_cost, q_codes.shape[0],
                      buckets.num_buckets, buckets.hash_bits) as sp:
-        matches = match_fn(q_codes, buckets.bucket_code)        # (Q, B)
-        bucket_rank = buckets.rank[buckets.bucket_rid[None, :], matches]
-        return sp.sync(torch.argsort(bucket_rank, dim=-1, stable=True))
+        with span_or_null(tracker, "repro.engine.directory_scan") as sc:
+            matches = sc.sync(match_fn(q_codes, buckets.bucket_code))
+        with span_or_null(tracker, "repro.engine.rank_sort") as rs:
+            bucket_rank = buckets.rank[buckets.bucket_rid[None, :], matches]
+            order = rs.sync(torch.argsort(bucket_rank, dim=-1, stable=True))
+        return sp.sync(order)                                   # (Q, B)
 
 
 def _probe_runs(buckets: BucketIndex, order: torch.Tensor, num_probe: int
@@ -241,14 +256,18 @@ def fused_bucket_query(buckets: BucketIndex, q_codes: torch.Tensor,
                      cost.fused_query_cost, q_codes.shape[0], total,
                      queries.shape[1], int(k),
                      max(int(k), min(max(4 * int(k), 32), total))) as sp:
-        if budgets is not None:
-            cum, starts = _planned_runs(buckets, order, budgets)
-        else:
-            cum, starts = _probe_runs(buckets, order, total)
-        vals, pos = ops.fused_query(queries, cum, starts, items_csr, total,
-                                    k, payload=payload, scale=scale,
-                                    impl=impl)
-        ids = sp.sync(buckets.item_ids[pos])
+        with span_or_null(tracker, "repro.engine.runs") as rn:
+            if budgets is not None:
+                cum, starts = _planned_runs(buckets, order, budgets)
+            else:
+                cum, starts = _probe_runs(buckets, order, total)
+            rn.sync((cum, starts))
+        with span_or_null(tracker, "repro.engine.fused_score") as fs:
+            vals, pos = ops.fused_query(queries, cum, starts, items_csr,
+                                        total, k, payload=payload,
+                                        scale=scale, impl=impl)
+            ids = fs.sync(buckets.item_ids[pos])
+        sp.sync(ids)
     return vals, ids, total
 
 
@@ -498,15 +517,17 @@ class QueryEngine:
         """Algorithm 2 end to end: probe, exact re-rank, (vals, ids) (Q,
         k). Exactly one of ``num_probe``, ``budgets`` or ``recall_target``
         (resolved through the index's calibration table)."""
-        if recall_target is not None:
-            if num_probe is not None or budgets is not None:
-                raise ValueError(
-                    "pass one of num_probe/budgets/recall_target")
-            from repro_torch.core.planner import resolve_budgets
-            budgets = resolve_budgets(getattr(self.index, "calib", None),
-                                      recall_target, k=k).budgets
+        if recall_target is not None and (num_probe is not None
+                                          or budgets is not None):
+            raise ValueError("pass one of num_probe/budgets/recall_target")
         tr = self.tracker
         with span_or_null(tr, "repro.engine.query"):
+            if recall_target is not None:
+                from repro_torch.core.planner import resolve_budgets
+                with span_or_null(tr, "repro.planner.resolve_budgets"):
+                    budgets = resolve_budgets(
+                        getattr(self.index, "calib", None), recall_target,
+                        k=k).budgets
             if self.engine == "fused":
                 if (num_probe is None) == (budgets is None):
                     raise ValueError("pass exactly one of "

@@ -6,7 +6,13 @@ per-source pids, analytic device-cost attribution, and tracker/histogram
 merge for per-process -> fleet rollups. Everything is host-side Python
 recorded after explicit device-sync boundaries, so attaching a tracker
 never changes query results. It imports neither JAX nor ``repro``; the
-metric names are the reference's.
+metric names are the reference's, beside the port's own child spans
+(``cost.PORT_STAGES``). While ``torch.profiler`` records, every span
+site is also a ``record_function`` range of its name, tracked or not.
+One name differs in meaning: for a call that names a recall target the
+port plans inside ``repro.engine.query`` (child span
+``repro.planner.resolve_budgets``), so that span's duration covers the
+host's planning, which the reference's ``repro.engine.query`` does not.
 
 Typical wiring::
 

@@ -36,6 +36,13 @@ BUCKET_STAGES = ("repro.engine.hash_encode", "repro.engine.directory_match",
                  "repro.engine.segmented_gather", "repro.engine.re_rank",
                  "repro.engine.top_k")
 
+# the port's own child spans, which the reference does not emit: the
+# directory walk's match and its rank gather + stable sort (inside
+# directory_match), and the fused arm's planned or global runs and its
+# launch + id gather (inside fused_query)
+PORT_STAGES = ("repro.engine.directory_scan", "repro.engine.rank_sort",
+               "repro.engine.runs", "repro.engine.fused_score")
+
 
 def hash_encode_cost(q: int, d: int, code_len: int) -> Dict[str, float]:
     """Sign-projection encode: (q, d) x (d, L) -> packed (q, W)."""

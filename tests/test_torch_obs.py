@@ -12,9 +12,11 @@ against each other in one process:
 * tracked and untracked port engines (dense, bucket, fused) return
   bit-identical results;
 * port and reference engines, tracked, on a reference index carried
-  across, give the same span names and cost attrs, and equal
-  ``queries``, ``probe_width`` and ``probes_used.range{j}`` records, and
-  the same kernel dispatch and cost counters;
+  across, give the same span names and cost attrs for every span the
+  reference emits, and equal ``queries``, ``probe_width`` and
+  ``probes_used.range{j}`` records, and the same kernel dispatch and
+  cost counters; the port's other spans are exactly its own
+  (``cost.PORT_STAGES`` and ``repro.planner.resolve_budgets``);
 * ``adaptive_query`` telemetry equals the reference's;
 * the same streaming traffic gives the same event kinds and payloads
   (floats within rtol 1e-6: a torch f32 norm may differ by an ulp).
@@ -52,8 +54,9 @@ from repro_torch.obs import (JsonlSink, LogHistogram, RecallAuditor,
                              set_default_tracker, span_or_null,
                              validate_chrome_trace)
 from repro_torch.obs import trace as ptrace
-from repro_torch.obs.cost import (BUCKET_STAGES, flop_counter_cost,
-                                  hash_encode_cost, query_stage_costs)
+from repro_torch.obs.cost import (BUCKET_STAGES, PORT_STAGES,
+                                  flop_counter_cost, hash_encode_cost,
+                                  query_stage_costs)
 from repro_torch.obs.trace import _NULL_SPAN
 
 GEN_SEED = 5
@@ -550,15 +553,35 @@ def calibrated():
 
 
 PROBES = ({"num_probe": 300}, {"recall_target": 0.9})
+PLAN_SPAN = "repro.planner.resolve_budgets"
 STAGES = {
     "bucket": {"repro.engine.hash_encode", "repro.engine.directory_match",
+               "repro.engine.directory_scan", "repro.engine.rank_sort",
                "repro.engine.segmented_gather", "repro.engine.re_rank",
-               "repro.engine.top_k", "repro.engine.query"},
+               "repro.engine.top_k", "repro.engine.query", PLAN_SPAN},
     "dense": {"repro.engine.hash_encode", "repro.engine.dense_match",
               "repro.engine.dense_select", "repro.engine.re_rank",
-              "repro.engine.top_k", "repro.engine.query"},
+              "repro.engine.top_k", "repro.engine.query", PLAN_SPAN},
     "fused": {"repro.engine.hash_encode", "repro.engine.directory_match",
-              "repro.engine.fused_query", "repro.engine.query"},
+              "repro.engine.directory_scan", "repro.engine.rank_sort",
+              "repro.engine.fused_query", "repro.engine.runs",
+              "repro.engine.fused_score", "repro.engine.query", PLAN_SPAN},
+}
+# the port's own spans (no reference counterpart) at their paths, once
+# per call of PROBES: the directory walk's children in both bucket arms,
+# the fused arm's runs and launch, the plan of the recall_target call
+_Q, _DIR, _FQ = ("repro.engine.query", "repro.engine.directory_match",
+                 "repro.engine.fused_query")
+PORT_PATHS = {
+    "bucket": [f"{_Q}/{_DIR}/repro.engine.directory_scan",
+               f"{_Q}/{_DIR}/repro.engine.rank_sort"] * 2
+    + [f"{_Q}/{PLAN_SPAN}"],
+    "dense": [f"{_Q}/{PLAN_SPAN}"],
+    "fused": [f"{_Q}/{_DIR}/repro.engine.directory_scan",
+              f"{_Q}/{_DIR}/repro.engine.rank_sort",
+              f"{_Q}/{_FQ}/repro.engine.runs",
+              f"{_Q}/{_FQ}/repro.engine.fused_score"] * 2
+    + [f"{_Q}/{PLAN_SPAN}"],
 }
 
 
@@ -586,10 +609,10 @@ def test_instrumented_query_ids_bit_identical(calibrated, arm):
     assert tr.counters["repro.engine.queries"] == 2 * queries.shape[0]
 
 
-def _span_attrs(ring):
+def _span_attrs(records):
     """name -> list of attrs dicts, in record order."""
     out = {}
-    for r in ring.query(type="span"):
+    for r in records:
         out.setdefault(r["name"], []).append(r.get("attrs"))
     return out
 
@@ -601,8 +624,13 @@ def _hist_values(h):
 @pytest.mark.parametrize("arm", ["bucket", "dense", "fused"])
 def test_tracked_records_equal_reference(calibrated, arm):
     """Port and reference, tracked, over the same index and queries: the
-    same span names, paths and cost attrs, and equal ``queries``,
-    ``probe_width`` and ``probes_used.range{j}`` records."""
+    records the reference emits under the same span names, paths and
+    cost attrs, and equal ``queries``, ``probe_width`` and
+    ``probes_used.range{j}`` records; the port's other spans are exactly
+    its own (``PORT_STAGES`` and the plan), uncosted, at their paths.
+    Paths and attrs are compared, not durations: for the recall_target
+    call the port's ``repro.engine.query`` also holds the plan, which
+    the reference runs before its span opens."""
     jidx, pidx, queries = calibrated
     jr, pr = jobs.RingBufferSink(), RingBufferSink()
     jt, pt = jobs.Tracker([jr]), Tracker([pr])
@@ -611,10 +639,16 @@ def test_tracked_records_equal_reference(calibrated, arm):
     for kw in PROBES:
         jeng.query(jnp.asarray(queries), 10, **kw)
         peng.query(t(queries), 10, **kw)
-    assert set(pt.hists) == set(jt.hists)
-    assert [r["path"] for r in pr.query(type="span")] == \
-        [r["path"] for r in jr.query(type="span")]
-    assert _span_attrs(pr) == _span_attrs(jr)
+    jspans = jr.query(type="span")
+    theirs = {r["name"] for r in jspans}
+    shared = [r for r in pr.query(type="span") if r["name"] in theirs]
+    own = [r for r in pr.query(type="span") if r["name"] not in theirs]
+    assert {r["name"] for r in own} <= set(PORT_STAGES) | {PLAN_SPAN}
+    assert sorted(r["path"] for r in own) == sorted(PORT_PATHS[arm])
+    assert all("attrs" not in r for r in own)
+    assert set(pt.hists) == set(jt.hists) | {r["name"] for r in own}
+    assert [r["path"] for r in shared] == [r["path"] for r in jspans]
+    assert _span_attrs(shared) == _span_attrs(jspans)
     assert pt.counters == jt.counters
     for name, h in jt.hists.items():
         if not any(name.startswith(p) for p in ("repro.engine.probe",)):
