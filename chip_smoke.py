@@ -67,7 +67,16 @@ Phases, each fatal on failure:
    calls under ``torch.profiler`` (of those it recorded). Lines headed
    ``yardstick:`` time one PyTorch call that computes part of a kernel's
    function (``torch.searchsorted`` for the run index, ``x @ A`` for the
-   projection); they are not library pairs.
+   projection); they are not library pairs. The port's own kernel
+   ``planned_runs`` (the per-range take, plain jnp in the reference) has a
+   row at the main path's probe order and budgets, bound by its bytes
+   (no operations counted), and one at the benchmark cell's shape
+   (``yahoomusic``, 136,736 x 300, m 32, code length 32, a seeded plan at
+   recall 0.9): there 8 batches of 64 are served through the fused engine
+   with the launch counters zeroed before, ``planned_runs`` must launch
+   once a batch, and a ``yardstick:`` line times the parent's composition
+   (32 masked passes, the take, the exclusive cumsum, caps copied from
+   the host).
 
 5. The rest of the spec API at the same N and d. The launch counters are
    zeroed just before the path and read right after its last call,
@@ -329,8 +338,11 @@ K = 10
 RECALL_TARGET = 0.9
 BATCH = 64
 SEED = 0
+CELL_ITEMS = 136736       # the benchmark cell's catalogue (Yahoo!Music R2)
+CELL_DIM = 300
+CELL_BATCHES = 8          # budgeted batches served at the cell's shape
 SLICE1_KERNELS = ("hash_encode", "hamming_scan", "bucket_gather",
-                  "fused_query", "fused_query_int8")
+                  "fused_query", "fused_query_int8", "planned_runs")
 STREAM_KERNELS = ("hash_encode", "bucket_match", "bucket_gather",
                   "delta_scan", "mips_topk")
 ROUNDS = 32               # streaming traffic
@@ -835,6 +847,86 @@ def in_chunks(call, q: int, rows: int):
     import torch
     outs = [call(slice(s, s + rows)) for s in range(0, q, rows)]
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def planned_runs_case(order, buckets, budgets, dev, **extra):
+    """The per-range take's row at a path's probe order and budgets,
+    bound by the bytes it must move (its analytic cost: the order read
+    once, the tables once, ``starts`` and ``cum`` written once)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs.cost import planned_runs_cost
+    caps = torch.tensor(budgets, dtype=torch.int32, device=dev)
+    q, b = order.shape
+
+    def check(got, want):
+        for label, g, w in zip(("cum", "starts"), got, want):
+            if not torch.equal(g, w):
+                fail(f"planned_runs: {label} differs from the plain "
+                     f"version's at {tuple(order.shape)} "
+                     f"({int((g != w).sum())} entries)")
+        return 0.0, 0
+    return dict(
+        call=lambda impl: ops.planned_runs(order, buckets.bucket_start,
+                                           buckets.bucket_rid, caps,
+                                           impl=impl),
+        bytes=int(planned_runs_cost(q, b, len(budgets))["hbm_bytes"]),
+        ops=0,
+        kernel="planned_runs", device=("planned_runs_kernel",), check=check,
+        source="src/repro_torch/kernels/csrc/bucket_gather.cu",
+        replaces="none: plain jnp in src/repro/core/engine.py "
+                 "(range_cum_before, planned_take)", **extra)
+
+
+def served_cell_phase(ops, dev, card):
+    """Phase 4's last rows: the per-range take at the benchmark cell's
+    shape (``yahoomusic``, 136,736 x 300 with two clusters of norms,
+    RANGE-LSH m 32 at code length 32, 64-query batches at the budgets of
+    a seeded plan at recall 0.9). The launch counters are zeroed, 8
+    batches are served through the fused engine, and ``planned_runs``
+    must have launched once a batch. Returns (launches, shapes, cases)
+    and prints the parent's composition (the 32 masked passes, caps copied
+    from the host) as the yardstick."""
+    import torch
+    from repro_torch.core import planner
+    from repro_torch.core.engine import (_directory_order, check_budgets,
+                                         engine_for)
+    from repro_torch.core.index import IndexSpec, build
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import ref
+    ds = make_dataset("yahoomusic", SEED, n=CELL_ITEMS, d=CELL_DIM,
+                      num_queries=CELL_BATCHES * BATCH, device=dev)
+    spec = IndexSpec(family="simple", code_len=32, m=32, scheme="percentile",
+                     engine="fused", recall_target=RECALL_TARGET)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    idx = build(dataclasses.replace(spec, recall_target=None), ds.items, gen,
+                device=dev)
+    idx = idx._replace(spec=spec, calib=planner.calibrate(idx,
+                                                          generator=gen))
+    eng = engine_for(idx, engine="fused")
+    budgets, total = check_budgets(planner.resolve_budgets(
+        idx.calib, RECALL_TARGET, k=K).budgets, eng._range_counts)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for s in range(0, CELL_BATCHES * BATCH, BATCH):
+        eng.query(ds.queries[s:s + BATCH], K, budgets=budgets)
+    torch.cuda.synchronize()
+    launches, shapes = dict(ops.launch_counts), dict(ops.launch_shapes)
+    if launches["planned_runs"] != CELL_BATCHES:
+        fail(f"cell: planned_runs launched {launches['planned_runs']} "
+             f"times for {CELL_BATCHES} budgeted batches")
+    qb = ds.queries[:BATCH]
+    order = _directory_order(eng.buckets, eng._encode(qb), eng._match_fn)
+    bs, br = eng.buckets.bucket_start, eng.buckets.bucket_rid
+    y_ms = timed(lambda: ref.planned_runs_ref(order, bs, br, budgets),
+                 warmup=1)
+    print(f"yardstick: planned_runs_cell: the parent's composition (the "
+          f"{len(budgets)} masked passes of range_cum_before, the take, "
+          f"the exclusive cumsum; caps from the host) {y_ms:.4f} ms at "
+          f"{tuple(order.shape)}, width {total}; launches "
+          f"{launches['planned_runs']} in {CELL_BATCHES} batches [{card}]")
+    return launches, shapes, {"planned_runs_cell": planned_runs_case(
+        order, eng.buckets, budgets, dev, path="cell")}
 
 
 def run_cases(name, queries, cum, starts, items_csr, total, kp, dev):
@@ -3659,6 +3751,8 @@ def main() -> int:
             ops=2 * (slots + surv8) * d,
             source="src/repro_torch/kernels/csrc/fused_query.cu",
             replaces="src/repro/kernels/fused_query.py:156", cold=True),
+        "planned_runs": planned_runs_case(order, buckets, budgets, dev,
+                                          plain_reps=3),
     }
     # the streaming path's kernels, at the shapes of its last state
     sq, hb = st["q_codes"], st["hash_bits"]
@@ -3846,6 +3940,10 @@ def main() -> int:
                   lambda: [cases[n]["call"]("cuda") for n in redesigned],
                   top=12)
     del cases, st
+    cell_launches, cell_shapes, cell_cases = served_cell_phase(ops, dev, smi)
+    paths["cell"] = (cell_launches, cell_shapes)
+    compare(cell_cases)
+    del cell_cases
 
     # -- 5. ALSH families, adaptive, multi-table, Fig. 2 ----------------------
     alsh_launches, alsh_shapes, alsh_cases = alsh_phase(

@@ -64,14 +64,14 @@ import torch
 
 from repro_torch.core.bucket_index import (build_bucket_index,
                                            rank_from_scores)
-from repro_torch.core.engine import (check_budgets, planned_take,
-                                     range_cum_before, select_engine)
+from repro_torch.core.engine import check_budgets, select_engine
 from repro_torch.core.index import ComposedMultiTable, IndexSpec, _check_probe
 from repro_torch.core.index import build as build_spec
 from repro_torch.core.probe import DEFAULT_EPS
 from repro_torch.core.topk import gathered_scores
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import stable_topk
+from repro_torch.kernels.ref import (planned_take, range_cum_before,
+                                    stable_topk)
 from repro_torch.obs.trace import span_or_null
 from repro_torch.obs.tracker import resolve_tracker
 

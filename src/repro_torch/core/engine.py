@@ -45,6 +45,7 @@ tracked or not.
 
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
 
@@ -56,6 +57,7 @@ from repro_torch.core import hashing
 from repro_torch.core.bucket_index import BucketIndex, build_bucket_index
 from repro_torch.core.topk import rerank
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import exclusive_cum, range_cum_before
 from repro_torch.obs import cost
 from repro_torch.obs.trace import costed_span, span_or_null
 from repro_torch.obs.tracker import resolve_tracker
@@ -121,25 +123,25 @@ def _probe_runs(buckets: BucketIndex, order: torch.Tensor, num_probe: int
     sel = order[:, :min(buckets.num_buckets, num_probe)]
     sizes = (buckets.bucket_start[1:] - buckets.bucket_start[:-1])[sel]
     starts = buckets.bucket_start[:-1][sel]
-    return _exclusive_cum(sizes), starts
+    return exclusive_cum(sizes), starts
 
 
-def _exclusive_cum(sizes: torch.Tensor) -> torch.Tensor:
-    zero = torch.zeros((sizes.shape[0], 1), dtype=torch.int32,
-                       device=sizes.device)
-    return torch.cat([zero, torch.cumsum(sizes, dim=-1,
-                                         dtype=torch.int32)], dim=-1)
+@functools.lru_cache(maxsize=64)
+def _caps(budgets: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """(R,) int32 budgets on ``device``, made once per plan: a fresh copy
+    each batch would wait for the stream's queued work."""
+    return torch.tensor(budgets, dtype=torch.int32, device=device)
 
 
 def _planned_runs(buckets: BucketIndex, order: torch.Tensor,
-                  budgets: Sequence[int]
+                  budgets: Sequence[int], *, impl: str = "auto"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cum (Q, B+1), starts (Q, B)) runs realizing per-range budgets:
-    each probe-ordered bucket takes what is left of its range's budget."""
-    sizes_o = (buckets.bucket_start[1:] - buckets.bucket_start[:-1])[order]
-    starts = buckets.bucket_start[:-1][order]
-    take = planned_take(buckets.bucket_rid[order], sizes_o, budgets)
-    return _exclusive_cum(take), starts
+    each probe-ordered bucket takes what is left of its range's budget
+    (one ``ops.planned_runs`` launch on the card)."""
+    caps = _caps(tuple(int(b) for b in budgets), order.device)
+    return ops.planned_runs(order, buckets.bucket_start, buckets.bucket_rid,
+                            caps, impl=impl)
 
 
 def bucket_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
@@ -184,29 +186,6 @@ def bucket_range_counts(buckets: BucketIndex) -> np.ndarray:
                        minlength=buckets.rank.shape[0]).astype(np.int64)
 
 
-def range_cum_before(rid_o: torch.Tensor, sizes_o: torch.Tensor,
-                     num_ranges: int) -> torch.Tensor:
-    """(Q, B) cumulative same-range sizes before each probe-ordered slot;
-    with unit sizes, the within-range probe position."""
-    crb = torch.zeros_like(sizes_o)
-    for j in range(num_ranges):
-        mask = rid_o == j
-        sz_j = torch.where(mask, sizes_o, 0)
-        crb += torch.where(
-            mask, torch.cumsum(sz_j, dim=-1, dtype=torch.int32) - sz_j, 0)
-    return crb
-
-
-def planned_take(rid_o: torch.Tensor, sizes_o: torch.Tensor,
-                 budgets: Sequence[int]) -> torch.Tensor:
-    """(Q, B) take per probe-ordered bucket: what is left of its range's
-    budget after the same-range buckets probed before it."""
-    crb = range_cum_before(rid_o, sizes_o, len(budgets))
-    caps = torch.tensor(budgets, dtype=torch.int32,
-                        device=rid_o.device)[rid_o]
-    return torch.minimum(torch.clamp_min(caps - crb, 0), sizes_o)
-
-
 def planned_bucket_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
                               budgets: Sequence[int], *,
                               impl: str = "auto", match_fn=None,
@@ -222,7 +201,7 @@ def planned_bucket_candidates(buckets: BucketIndex, q_codes: torch.Tensor,
     with costed_span(tracker, "repro.engine.segmented_gather",
                      cost.segmented_gather_cost, q_codes.shape[0],
                      total) as sp:
-        cum, starts = _planned_runs(buckets, order, budgets)
+        cum, starts = _planned_runs(buckets, order, budgets, impl=impl)
         csr_pos = ops.bucket_gather(cum, starts, total, impl=impl)
         return sp.sync(buckets.item_ids[csr_pos])
 
@@ -258,7 +237,8 @@ def fused_bucket_query(buckets: BucketIndex, q_codes: torch.Tensor,
                      max(int(k), min(max(4 * int(k), 32), total))) as sp:
         with span_or_null(tracker, "repro.engine.runs") as rn:
             if budgets is not None:
-                cum, starts = _planned_runs(buckets, order, budgets)
+                cum, starts = _planned_runs(buckets, order, budgets,
+                                            impl=impl)
             else:
                 cum, starts = _probe_runs(buckets, order, total)
             rn.sync((cum, starts))

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashing, topk
-from repro_torch.kernels.ref import full_f32
+from repro_torch.kernels.ref import full_f32, range_cum_before
 
 DEFAULT_CAL_QUERIES = 256
 DEFAULT_CAL_K = 10
@@ -109,11 +109,9 @@ def _truth_positions(order_ids: torch.Tensor, range_id: torch.Tensor,
     gpos = torch.empty((q, n), dtype=torch.int32, device=order.device)
     gpos.scatter_(1, order, arange.expand(q, n))
     sorted_rid = range_id[order]
-    wpos_sorted = torch.zeros((q, n), dtype=torch.int32, device=order.device)
-    for j in range(num_ranges):
-        mask = sorted_rid == j
-        wpos_sorted += torch.where(
-            mask, torch.cumsum(mask, dim=1, dtype=torch.int32) - 1, 0)
+    wpos_sorted = range_cum_before(
+        sorted_rid, torch.ones_like(sorted_rid, dtype=torch.int32),
+        num_ranges)
     wpos = torch.empty_like(gpos).scatter_(1, order, wpos_sorted)
     t = truth_ids.long()
     return torch.gather(gpos, 1, t), torch.gather(wpos, 1, t)

@@ -43,6 +43,8 @@ SIGNATURES = {
                    [_P, _P, _P, _P, _I, _LL, _I, _I, _P]),
     "bucket_gather": ("bucket_gather", "repro_bucket_gather",
                       [_P, _P, _P, _I, _I, _I, _P]),
+    "planned_runs": ("bucket_gather", "repro_planned_runs",
+                     [_P] * 6 + [_I, _LL, _I, _P]),
     "fused_query": ("fused_query", "repro_fused_query",
                     [_P, _P, _P, _P, _I] + [_P] * 8 + [_I] * 11 + [_P]),
     "mips_topk": ("mips_topk", "repro_mips_topk",

@@ -65,6 +65,11 @@ class KernelAnnotation:
         return str(dim)
 
 
+def _pad16(nbytes: int) -> int:
+    """Static shared memory rounded up to 16 bytes."""
+    return -(-nbytes // 16) * 16
+
+
 # hamming.cu's wide block stages its 64 query codes plus the next row's,
 # and the halo of 7 item codes, for up to W = 8 words
 _WIDE_SCAN_SMEM = 4 * (64 + 1 + 7) * 8
@@ -108,8 +113,17 @@ ANNOTATIONS: Dict[str, KernelAnnotation] = {
                  "last without a second masking pass")),
     "bucket_gather": KernelAnnotation(
         name="bucket_gather", grid_names=("slot spans", "queries"),
-        static_smem={"bucket_gather_kernel": 4 * (2048 + 2048 // 32 + 2)},
-        max_threads={"bucket_gather_kernel": 256},
+        # the library also holds the port's planned_runs kernel (ops.
+        # planned_runs, no op of the registry): one 1,024-thread block a
+        # row, its per-range sums in dynamic shared memory, statically the
+        # warps' take sums and the take carry. A library that declares
+        # dynamic shared memory has each kernel's static part padded to
+        # 16 bytes (ptxas: 8,456 -> 8,464 and 132 -> 144)
+        static_smem={"bucket_gather_kernel":
+                     _pad16(4 * (2048 + 2048 // 32 + 2)),
+                     "planned_runs_kernel": _pad16(4 * (32 + 1))},
+        max_threads={"bucket_gather_kernel": 256,
+                     "planned_runs_kernel": 1024},
         pad_contained=True,
         note="a block covers 2,048 slots of one query at a time and walks "
              "the queries past the grid's 65,535 rows"),

@@ -17,7 +17,11 @@ A wrapper that launches its kernel adds one to ``launch_counts[kernel]``
 the launch passes (``last_shape[kernel]`` keeps the latest), and raises
 ``RuntimeError`` when the launch is refused; nothing falls back to the
 plain version on a CUDA tensor. Outputs are allocated here and the
-kernels run on the current stream.
+kernels run on the current stream. The port's own kernels
+(``PORT_KERNELS``: ``planned_runs``, the per-range take, which the
+reference computes in plain jnp) count and dispatch the same way but stay
+out of ``OPS``, ``KERNELS`` and ``KERNEL_REGISTRY``, which keep the
+reference's keys.
 
 With a tracker installed (:func:`set_dispatch_tracker`), every wrapper
 call counts ``repro.kernels.dispatch.<op>.<impl>`` (``impl`` resolved to
@@ -46,10 +50,13 @@ IMPLS = ("auto", "cuda", "ref")
 OPS = ("hash_encode", "hamming_scan", "bucket_gather", "fused_query",
        "bucket_match", "delta_scan", "mips_topk")
 KERNELS = OPS + ("fused_query_int8",)
+# the port's own kernels, which no Pallas kernel of the reference stands
+# behind (the registry keeps the reference's ops): the per-range take
+PORT_KERNELS = ("planned_runs",)
 
 # per-kernel launches since the last reset (plain-version calls never
 # count)
-launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+launch_counts: Dict[str, int] = {name: 0 for name in KERNELS + PORT_KERNELS}
 # the same, by launch shape: (kernel, sizes) -> launches
 launch_shapes: Dict[Tuple[str, Tuple[int, ...]], int] = {}
 last_shape: Dict[str, Tuple[int, ...]] = {}
@@ -84,9 +91,12 @@ FUSED_SPAN = 2048
 FUSED_MERGE_STAGE = 2048
 _FUSED_STATIC_SMEM = 4 * (256 + 8 + 4)
 
+# bucket_gather.cu's planned_runs: warps of the one block that walks a row
+PLANNED_RUNS_WARPS = 32
+
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
+    for name in KERNELS + PORT_KERNELS:
         launch_counts[name] = 0
     launch_shapes.clear()
     last_shape.clear()
@@ -492,6 +502,62 @@ def bucket_gather(cum: torch.Tensor, starts: torch.Tensor, num_probe: int,
     return out
 
 
+def planned_runs_smem(R: int) -> int:
+    """Dynamic shared memory of a ``planned_runs`` block: each warp's
+    per-range sums (32 warps x R, rows padded to an odd stride) and the R
+    carries."""
+    R = int(R)
+    return 4 * (PLANNED_RUNS_WARPS * (R | 1) + R)
+
+
+def planned_runs(order: torch.Tensor, bucket_start: torch.Tensor,
+                 bucket_rid: torch.Tensor, caps: torch.Tensor, *,
+                 impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Runs realizing per-range budgets over a probe order: (cum (Q, B+1),
+    starts (Q, B)) int32, for ``bucket_gather`` and ``fused_query``.
+
+    ``order`` (Q, B) int64: each row the directory's bucket indices in
+    probe order; ``bucket_start`` (B+1,) int32 CSR offsets; ``bucket_rid``
+    (B,) int32 range of each bucket, in [0, R); ``caps`` (R,) int32 budgets
+    clipped to the ranges' counts. Bucket ``order[q, s]`` starts its run
+    at ``bucket_start[b]`` and takes what is left of its range's cap after
+    the same-range buckets before it in the row; ``cum`` is the exclusive
+    prefix of the takes. One launch on the card, for any Q, B and R whose
+    carries fit a block's shared memory."""
+    op = "planned_runs"
+    if order.dim() != 2 or caps.dim() != 1:
+        raise ValueError(f"{op}: order {tuple(order.shape)} and caps "
+                         f"{tuple(caps.shape)} must be (Q, B) and (R,)")
+    Q, B = order.shape
+    R = caps.shape[0]
+    _require_nonempty(op, Q=Q, B=B, R=R)
+    if (tuple(bucket_start.shape) != (B + 1,)
+            or tuple(bucket_rid.shape) != (B,)):
+        raise ValueError(f"{op}: bucket_start {tuple(bucket_start.shape)} "
+                         f"and bucket_rid {tuple(bucket_rid.shape)} must be "
+                         f"({B + 1},) and ({B},) for order "
+                         f"{tuple(order.shape)}")
+    for t, name, dtype in ((order, "order", torch.int64),
+                           (bucket_start, "bucket_start", torch.int32),
+                           (bucket_rid, "bucket_rid", torch.int32),
+                           (caps, "caps", torch.int32)):
+        _require(op, t, name, dtype)
+    impl = _resolve(impl, op, order, bucket_start, bucket_rid, caps)
+    _charge(op, _cost.planned_runs_cost, Q, B, R)
+    if impl == "ref":
+        return _ref.planned_runs_ref(order, bucket_start, bucket_rid, caps)
+    static = ANNOTATIONS["bucket_gather"].static_smem["planned_runs_kernel"]
+    if planned_runs_smem(R) + static > _SMEM_LIMIT:
+        raise ValueError(f"{op}: R={R} ranges' carries must fit a block's "
+                         f"shared memory ({_SMEM_LIMIT} bytes)")
+    args = [t.contiguous() for t in (order, bucket_start, bucket_rid, caps)]
+    cum = torch.empty((Q, B + 1), dtype=torch.int32, device=order.device)
+    starts = torch.empty((Q, B), dtype=torch.int32, device=order.device)
+    _launch(op, op, *(a.data_ptr() for a in args), starts.data_ptr(),
+            cum.data_ptr(), Q, B, R, shape=(Q, B, R))
+    return cum, starts
+
+
 def fused_query(queries: torch.Tensor, cum: torch.Tensor,
                 starts: torch.Tensor, items: torch.Tensor, total: int,
                 k: int, *, kprime: Optional[int] = None,
@@ -767,6 +833,8 @@ def launch_shape_class(kernel: str, sizes: Tuple[int, ...]
                                        sizes))
     if kernel == "mips_topk":
         return kernel, dict(zip(("q", "n", "d", "k"), sizes))
+    if kernel == "planned_runs":          # a port kernel: not in the registry
+        return kernel, dict(zip(("q", "b", "r"), sizes))
     raise ValueError(f"launch_shape_class: unknown kernel {kernel!r}")
 
 

@@ -178,3 +178,48 @@ def fused_query_ref(queries: torch.Tensor, cum: torch.Tensor,
     fv, fi = stable_topk(rescored, k)
     fpos = torch.gather(torch.where(ok, spos, -1), 1, fi)
     return fv, fpos.to(torch.int32)
+
+
+def range_cum_before(rid_o: torch.Tensor, sizes_o: torch.Tensor,
+                     num_ranges: int) -> torch.Tensor:
+    """(Q, B) cumulative same-range sizes before each probe-ordered slot;
+    with unit sizes, the within-range probe position. One masked int32
+    cumsum a range."""
+    crb = torch.zeros_like(sizes_o)
+    for j in range(num_ranges):
+        mask = rid_o == j
+        sz_j = torch.where(mask, sizes_o, 0)
+        crb += torch.where(
+            mask, torch.cumsum(sz_j, dim=-1, dtype=torch.int32) - sz_j, 0)
+    return crb
+
+
+def planned_take(rid_o: torch.Tensor, sizes_o: torch.Tensor,
+                 budgets) -> torch.Tensor:
+    """(Q, B) take per probe-ordered bucket: what is left of its range's
+    budget (``budgets``: R ints or an (R,) int32 tensor) after the
+    same-range buckets probed before it."""
+    caps = torch.as_tensor(budgets, dtype=torch.int32, device=rid_o.device)
+    crb = range_cum_before(rid_o, sizes_o, caps.shape[0])
+    return torch.minimum(torch.clamp_min(caps[rid_o] - crb, 0), sizes_o)
+
+
+def exclusive_cum(sizes: torch.Tensor) -> torch.Tensor:
+    """(Q, S+1) int32 ``[0, cumsum(sizes)]`` of each row."""
+    zero = torch.zeros((sizes.shape[0], 1), dtype=torch.int32,
+                       device=sizes.device)
+    return torch.cat([zero, torch.cumsum(sizes, dim=-1,
+                                         dtype=torch.int32)], dim=-1)
+
+
+def planned_runs_ref(order: torch.Tensor, bucket_start: torch.Tensor,
+                     bucket_rid: torch.Tensor, caps: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Runs realizing per-range budgets over a probe order: (cum (Q, B+1),
+    starts (Q, B)) int32. Bucket ``order[q, s]`` starts its run at its CSR
+    offset and takes what is left of its range's cap (:func:`planned_take`);
+    ``cum`` is the exclusive prefix of the takes."""
+    sizes_o = (bucket_start[1:] - bucket_start[:-1])[order]
+    starts = bucket_start[:-1][order]
+    take = planned_take(bucket_rid[order], sizes_o, caps)
+    return exclusive_cum(take), starts

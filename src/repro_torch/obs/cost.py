@@ -133,6 +133,18 @@ def fused_query_cost(q: int, total: int, d: int, k: int,
     return {"flops": float(flops), "hbm_bytes": float(bytes_)}
 
 
+def planned_runs_cost(q: int, b: int, r: int) -> Dict[str, float]:
+    """The port's own per-range take (kernels/ops.py planned_runs; the
+    reference runs it as plain jnp, with no op of its own): the (q, b)
+    int64 probe order read once, the bucket offsets, ranges and caps read
+    once, ``starts`` (q, b) and ``cum`` (q, b+1) int32 written once. No
+    FLOPs are counted: its work is integer adds and compares."""
+    bytes_ = (8 * q * b                      # probe order
+              + WORD * (2 * b + 1 + r)       # bucket_start, bucket_rid, caps
+              + WORD * (2 * q * b + q))      # starts, cum
+    return {"flops": 0.0, "hbm_bytes": float(bytes_)}
+
+
 def query_stage_costs(shape: Dict[str, Any]) -> Dict[str, Dict[str, float]]:
     """Per-stage predicted {flops, hbm_bytes} for one served batch.
 

@@ -89,6 +89,26 @@ def imports_of(path: Path) -> set:
     return names
 
 
+def make_directory(rng, q, b, r, caps_mode, probe_like=False):
+    """A seeded directory of ``b`` buckets over ``r`` ranges (bucket
+    sizes 1-6, ranges ascending as in the CSR store), ``q`` probe orders
+    and per-range caps: "half" of each range's count, "zero" for range 0
+    and half elsewhere, "above" the counts, "count" exactly them."""
+    sizes = rng.integers(1, 7, size=b)
+    start = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    rid = np.sort(rng.integers(0, r, size=b)).astype(np.int32)
+    if probe_like:          # rank by (range, level) groups, as a probe does
+        level = rng.integers(0, 8, size=(q, b))
+        key = rng.permutation(r * 8)[rid[None, :] * 8 + level]
+        order = np.argsort(key, axis=1, kind="stable")
+    else:
+        order = np.stack([rng.permutation(b) for _ in range(q)])
+    count = np.bincount(rid, weights=sizes, minlength=r).astype(np.int64)
+    caps = {"half": count // 2, "zero": np.r_[0, count[1:] // 2],
+            "above": count + 3, "count": count}[caps_mode]
+    return order.astype(np.int64), start, rid, caps.astype(np.int32)
+
+
 def mismatched_shape_calls(device):
     """Calls of the wrappers whose arguments' shapes disagree (the cases
     the CUDA kernels would read out of bounds on): name -> fn(impl)."""
@@ -115,12 +135,17 @@ def mismatched_shape_calls(device):
             impl=impl),
         "fused_query_starts": lambda impl: ops.fused_query(
             f(2, 4), cum, i(3, 2), f(8, 4), 4, 2, impl=impl),
+        "planned_runs_bucket_start": lambda impl: ops.planned_runs(
+            i(2, 5).long(), i(5), i(5), i(3), impl=impl),
+        "planned_runs_bucket_rid": lambda impl: ops.planned_runs(
+            i(2, 5).long(), i(6), i(4), i(3), impl=impl),
     }
 
 
 MISMATCHED = ("hash_encode_A_rows", "hash_encode_tail", "hash_encode_a_tail",
               "fused_query_items_d", "fused_query_cum_rows",
-              "fused_query_starts")
+              "fused_query_starts", "planned_runs_bucket_start",
+              "planned_runs_bucket_rid")
 
 
 def reference_dryrun():

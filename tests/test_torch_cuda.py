@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (MISMATCHED, assert_topk_tie_aware, make_runs,
-                           mismatched_shape_calls)
+from _torch_parity import (MISMATCHED, assert_topk_tie_aware,
+                           make_directory, make_runs, mismatched_shape_calls)
 from repro_torch.core.engine import quantize_payload
 from repro_torch.kernels import ops
 
@@ -185,8 +185,140 @@ def test_auto_on_cuda_launches_the_kernels(cuda_device):
     ops.delta_scan(codes[:8], codes, torch.ones(64, dtype=torch.bool,
                                                 device=cuda_device), 27)
     ops.mips_topk(x[:8], x, 3)
+    rid = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    ops.planned_runs(torch.tensor([[1, 0]], device=cuda_device), cum[0], rid,
+                     rid[:1] + 4)
     torch.cuda.synchronize()
-    assert ops.launch_counts == {name: 1 for name in ops.KERNELS}
+    assert ops.launch_counts == {name: 1 for name in
+                                 ops.KERNELS + ops.PORT_KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,b,r,caps,probe_like", [
+    (1, 4096, 32, "half", True),         # one whole tile
+    (3, 4095, 1, "half", False),         # one range, a tile less a slot
+    (2, 4097, 64, "zero", True),         # R 64, a tile and a slot
+    (1, 1, 1, "count", False),           # one bucket
+    (5, 3 * 4096 + 77, 3, "above", False),
+    (64, 136736, 32, "half", False),     # the served cell's shape, orders
+                                         # that mix every range in a chunk
+    (2, 9000, 1759, "half", False),      # the most ranges a block holds
+])
+def test_planned_runs_kernel_equals_plain(cuda_device, q, b, r, caps,
+                                          probe_like):
+    """The per-range take's kernel, bit for bit, at ragged row tails, one
+    and many ranges, zero budgets and budgets at or above the counts."""
+    rng = np.random.default_rng(600 + q + b + r)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in make_directory(rng, q, b, r, caps, probe_like)]
+    got = ops.planned_runs(*args, impl="cuda")
+    want = ops.planned_runs(*args, impl="ref")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_planned_runs_kernel_equals_plain_at_the_served_cell(cuda_device):
+    """The served cell: 64 queries over a 136,736 x 300 catalogue with
+    two clusters of norms, RANGE-LSH at code length 32 and m 32, the
+    budgets a seeded plan gives at recall 0.9 and the served path's probe
+    order."""
+    import dataclasses
+
+    from repro_torch.core import planner
+    from repro_torch.core.engine import (_directory_order, check_budgets,
+                                         engine_for)
+    from repro_torch.core.index import IndexSpec, build
+    from repro_torch.data.synthetic import make_dataset
+    ds = make_dataset("yahoomusic", 5, n=136736, d=300, num_queries=64,
+                      device=cuda_device)
+    spec = IndexSpec(family="simple", code_len=32, m=32, scheme="percentile",
+                     engine="fused", recall_target=0.9)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    idx = build(dataclasses.replace(spec, recall_target=None), ds.items, gen)
+    idx = idx._replace(spec=spec, calib=planner.calibrate(idx, generator=gen))
+    eng = engine_for(idx, engine="fused")
+    budgets, _ = check_budgets(
+        planner.resolve_budgets(idx.calib, 0.9, k=10).budgets,
+        eng._range_counts)
+    order = _directory_order(eng.buckets, eng._encode(ds.queries),
+                             eng._match_fn)
+    assert order.shape == (64, eng.buckets.num_buckets)
+    args = (order, eng.buckets.bucket_start, eng.buckets.bucket_rid,
+            torch.tensor(budgets, dtype=torch.int32, device=cuda_device))
+    got = ops.planned_runs(*args, impl="cuda")
+    want = ops.planned_runs(*args, impl="ref")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0][:, -1].min()) == sum(budgets)
+
+
+@pytest.mark.cuda
+def test_fused_engine_answers_unchanged_by_the_planned_runs_kernel(
+        cuda_device):
+    """A budgeted fused query launches planned_runs once and counts its
+    dispatch once; its answers equal the fused kernel's on the plain
+    version's runs bit for bit, and the all-plain engine's tie-aware."""
+    from repro_torch.core.engine import (QueryEngine, _directory_order,
+                                         check_budgets)
+    from repro_torch.kernels import ref
+    from repro_torch.obs import Tracker
+    idx, queries = _small_index(cuda_device)
+    eng = QueryEngine(idx, engine="fused")
+    budgets, total = check_budgets((40, 30, 25, 20, 15, 10, 10, 10),
+                                   eng._range_counts)
+    tr = Tracker()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.set_dispatch_tracker(tr)
+    try:
+        vals, ids = eng.query(queries, 10, budgets=budgets)
+    finally:
+        ops.set_dispatch_tracker(None)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["planned_runs"] == 1
+    assert tr.counters["repro.kernels.dispatch.planned_runs.cuda"] == 1
+    assert "repro.kernels.dispatch.planned_runs.ref" not in tr.counters
+    order = _directory_order(eng.buckets, eng._encode(queries),
+                             eng._match_fn)
+    cum, starts = ref.planned_runs_ref(
+        order, eng.buckets.bucket_start, eng.buckets.bucket_rid,
+        torch.tensor(budgets, dtype=torch.int32, device=cuda_device))
+    items_csr = eng._fused_arrays[0]
+    pv, pos = ops.fused_query(queries, cum, starts, items_csr, total, 10,
+                              impl="cuda")
+    assert torch.equal(vals, pv)
+    assert torch.equal(ids, eng.buckets.item_ids[pos])
+    plain = QueryEngine(idx, engine="fused", impl="ref",
+                        buckets=eng.buckets)
+    wv, wi = plain.query(queries, 10, budgets=budgets)
+    assert_topk_tie_aware(ids.cpu().numpy(), vals.cpu().numpy(),
+                          wi.cpu().numpy(), wv.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_planned_runs_rejects_more_ranges_than_a_block_holds(cuda_device):
+    args = [torch.as_tensor(a, device=cuda_device) for a in make_directory(
+        np.random.default_rng(10), 2, 3000, 1760, "half")]
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="must fit a block's shared memory"):
+        ops.planned_runs(*args)
+    assert not any(ops.launch_counts.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["auto", "cuda"])
+@pytest.mark.parametrize("host", range(4))
+def test_planned_runs_rejects_inputs_split_across_devices(cuda_device, impl,
+                                                          host):
+    """One input left on the CPU, the others on the card: ValueError
+    before any launch."""
+    args = [torch.as_tensor(a) for a in make_directory(
+        np.random.default_rng(9), 2, 50, 3, "half")]
+    args = [a if i == host else a.to(cuda_device)
+            for i, a in enumerate(args)]
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="needs every input on a CUDA"):
+        ops.planned_runs(*args, impl=impl)
+    assert not any(ops.launch_counts.values())
 
 
 def _span_runs(rng, q, slots, n, short=False):

@@ -487,7 +487,15 @@ def test_auto_on_cpu_runs_plain_versions_and_launches_nothing():
     mv, mi = ops.mips_topk(x[:3], x, 4)
     rv, ri = ref.mips_topk_ref(x[:3], x, 4)
     assert torch.equal(mi, ri) and torch.equal(mv, rv)
-    assert ops.launch_counts == {name: 0 for name in ops.KERNELS}
+    plan = (torch.tensor([[1, 0], [0, 1]]), torch.tensor([0, 3, 5],
+                                                         dtype=torch.int32),
+            torch.tensor([0, 1], dtype=torch.int32),
+            torch.tensor([2, 2], dtype=torch.int32))
+    pc, ps = ops.planned_runs(*plan)
+    rc, rs = ref.planned_runs_ref(*plan)
+    assert torch.equal(pc, rc) and torch.equal(ps, rs)
+    assert ops.launch_counts == {name: 0 for name in
+                                 ops.KERNELS + ops.PORT_KERNELS}
 
 
 # -- the CUDA kernels' launch plans and selection designs ---------------------

@@ -56,7 +56,7 @@ from repro_torch.obs import (JsonlSink, LogHistogram, RecallAuditor,
 from repro_torch.obs import trace as ptrace
 from repro_torch.obs.cost import (BUCKET_STAGES, PORT_STAGES,
                                   flop_counter_cost, hash_encode_cost,
-                                  query_stage_costs)
+                                  planned_runs_cost, query_stage_costs)
 from repro_torch.obs.trace import _NULL_SPAN
 
 GEN_SEED = 5
@@ -661,7 +661,10 @@ def test_tracked_records_equal_reference(calibrated, arm):
 @pytest.mark.parametrize("arm", ["bucket", "dense", "fused"])
 def test_dispatch_and_cost_counts_equal_reference(calibrated, arm):
     """The reference calls its ops eagerly on this path, so each op's
-    dispatch count and analytic cost totals must be the port's."""
+    dispatch count and analytic cost totals must be the port's. The
+    port's own op (``ops.PORT_KERNELS``: the per-range take, plain jnp in
+    the reference) counts once for each budgeted call of the bucket
+    arms, with its own cost, and nowhere else."""
     jidx, pidx, queries = calibrated
     jeng = jengine.QueryEngine(jidx, engine=arm)
     peng = QueryEngine(pidx, engine=arm, buckets=None, device="cpu")
@@ -675,8 +678,22 @@ def test_dispatch_and_cost_counts_equal_reference(calibrated, arm):
     finally:
         jops.set_dispatch_tracker(None)
         ops.set_dispatch_tracker(None)
-    assert pt.counters == jt.counters
+    own = {k: v for k, v in pt.counters.items()
+           if k.split(".")[3] in ops.PORT_KERNELS}
+    assert {k: v for k, v in pt.counters.items() if k not in own} == \
+        jt.counters
     assert any(k.startswith("repro.kernels.cost.") for k in pt.counters)
+    budgeted = sum("recall_target" in kw for kw in PROBES)
+    if arm == "dense":
+        assert own == {}
+    else:
+        c = planned_runs_cost(queries.shape[0], peng.buckets.num_buckets,
+                              peng.buckets.rank.shape[0])
+        assert own == {
+            "repro.kernels.dispatch.planned_runs.ref": budgeted,
+            "repro.kernels.cost.planned_runs.flops": budgeted * c["flops"],
+            "repro.kernels.cost.planned_runs.hbm_bytes":
+                budgeted * c["hbm_bytes"]}
 
 
 def test_adaptive_query_telemetry(calibrated):
