@@ -39,7 +39,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from mipsbench import check, harness, traffic
+    from mipsbench import check, harness
+    from mipsbench.kinds import rangelsh
     from mipsbench.reference import rangelsh as ref
 
     manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -48,7 +49,6 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     sync = torch.cuda.synchronize
     batch, k = int(mix["batch"]), int(cfg["k"])
-    target = float(cfg["spec"]["recall_target"])
     slots = list(range(args.batches))
 
     def report(side, seed, verdict, t):
@@ -61,28 +61,25 @@ def main(argv=None) -> int:
             flush=True)
 
     for seed in args.program_seeds:
-        from repro_torch.core import planner
         t = time.perf_counter()
-        inputs = traffic.make_inputs(cfg, mix, seed, device)
-        prog = harness.set_up(cfg, inputs, device, sync)
-        call, _, planned = harness.batch_caller(prog, cfg, mix, inputs.pool)
+        inputs = rangelsh.make_inputs(cfg, mix, seed, device)
+        prog = rangelsh.set_up(cfg, inputs, device, sync)
+        call, _ = rangelsh.caller(prog, cfg, mix, inputs)
         answers = []
         for s in slots:
             answers.append(call(s))
             sync()
-        served = check.Served(
+        served = rangelsh.served(prog, harness.Window(
             slots, torch.stack([a[0] for a in answers]),
-            torch.stack([a[1] for a in answers]), prog.index.codes,
-            planned or planner.resolve_budgets(prog.index.calib, target,
-                                               k=k).budgets)
+            torch.stack([a[1] for a in answers]), [], 0.0))
         del prog, call, answers
         gc.collect()
-        report("program", seed, harness.judge(served, inputs, cell, seed), t)
+        report("program", seed, rangelsh.judge(served, inputs, cell, seed), t)
 
     for seed in args.control_seeds:
         t = time.perf_counter()
-        inputs = traffic.make_inputs(cfg, mix, seed, device)
-        index, budgets = harness.reference_side(inputs, cfg, "tf32")
+        inputs = rangelsh.make_inputs(cfg, mix, seed, device)
+        index, budgets = rangelsh.reference_side(inputs, cfg, "tf32")
         pool_b = inputs.pool.view(-1, batch, inputs.pool.shape[1])
         vals, ids = ref.answer(index, inputs.items, inputs.projections,
                                pool_b[slots].reshape(-1, pool_b.shape[2]),
@@ -91,7 +88,7 @@ def main(argv=None) -> int:
                               ids.view(len(slots), batch, k), index.codes,
                               budgets)
         del index
-        report("control", seed, harness.judge(served, inputs, cell, seed), t)
+        report("control", seed, rangelsh.judge(served, inputs, cell, seed), t)
     return 0
 
 

@@ -17,12 +17,15 @@ import pytest
 import torch
 
 from mipsbench import check, devtrace, harness, traffic
+from mipsbench.kinds import rangelsh
 from mipsbench.reference import rangelsh as ref
 from repro_torch.core.engine import QueryEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in MANIFEST["workloads"]]
+CELLS = [w["name"] for w in MANIFEST["workloads"]
+         if harness.resolve_cell(MANIFEST, w["name"]).config["kind"]
+         == "rangelsh"]
 TINY = {"config": {"n": 6000, "d": 24},
         "mix": {"pool_batches": 8, "batch": 16},
         "workload": {"sample_batches": 4, "build_repeats": 2}}
@@ -51,14 +54,14 @@ def test_sound_run_is_correct(cell, plan):
 def test_control_in_the_programs_place_is_not_correct(cell):
     c = harness.resolve_cell(MANIFEST, cell, TINY)
     inputs = traffic.make_inputs(c.config, c.mix, SEED, torch.device("cpu"))
-    index, budgets = harness.reference_side(inputs, c.config, "tf32")
+    index, budgets = rangelsh.reference_side(inputs, c.config, "tf32")
     batch, k = c.mix["batch"], c.config["k"]
     slots = list(range(4))
     vals, ids = ref.answer(index, inputs.items, inputs.projections,
                            inputs.pool[:4 * batch], budgets, k, "tf32")
     served = check.Served(slots, vals.view(4, batch, k),
                           ids.view(4, batch, k), index.codes, budgets)
-    verdict = harness.judge(served, inputs, c, SEED).judged
+    verdict = rangelsh.judge(served, inputs, c, SEED).judged
     assert not verdict["correct"]
     assert verdict["checks"]["score_gap"]["value"] \
         > verdict["checks"]["score_gap"]["limit"]
@@ -146,7 +149,7 @@ def test_build_is_timed_as_the_mean_of_its_repeats():
     c = harness.resolve_cell(MANIFEST, CELLS[0], TINY)
     cpu = torch.device("cpu")
     inputs = traffic.make_inputs(c.config, c.mix, SEED, cpu)
-    prog = harness.set_up(c.config, inputs, cpu, lambda: None, repeats=3)
+    prog = rangelsh.set_up(c.config, inputs, cpu, lambda: None, repeats=3)
     t = prog.timings
     steps = t["index_s"] + t["bucket_store_s"] + t["calibrate_s"]
     assert 0 < steps <= t["build_s"] * (1 + 1e-9)
@@ -193,9 +196,9 @@ def test_merge_of_device_intervals():
 
 def test_sample_is_drawn_from_the_seed():
     slots = list(range(40)) + list(range(10))
-    a = harness.sample_slots(SEED, slots, 8)
-    assert a == harness.sample_slots(SEED, slots, 8) and len(set(a)) == 8
-    assert harness.sample_slots(SEED, [3, 3], 8) == [3]
+    a = rangelsh.sample_slots(SEED, slots, 8)
+    assert a == rangelsh.sample_slots(SEED, slots, 8) and len(set(a)) == 8
+    assert rangelsh.sample_slots(SEED, [3, 3], 8) == [3]
 
 
 @pytest.fixture

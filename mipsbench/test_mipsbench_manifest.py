@@ -1,6 +1,8 @@
 """BENCHMARK.json and the files the harness finds by name: every
-configuration, cell, mix and per-layer reader loads, and every name, unit
-and number keeps to the rules of the manifest's format."""
+configuration, its kind, cell, mix and per-layer reader loads, and every
+name, unit and number keeps to the rules of the manifest's format. What
+holds of every configuration is checked of each; what holds of one kind
+only, of the configurations of that kind."""
 
 import json
 import math
@@ -9,7 +11,7 @@ from pathlib import Path
 
 import pytest
 
-from mipsbench import harness
+from mipsbench import harness, traffic
 
 ROOT = Path(__file__).resolve().parents[1]
 BENCH = ROOT / "mipsbench"
@@ -77,12 +79,14 @@ def test_config_file_loads_by_name(config):
     assert entry["source"].startswith("https://")
     body = json.loads((ROOT / entry["file"]).read_text())
     assert body["name"] == config and body["source"] == entry["source"]
-    assert body["reduced"] == entry["reduced"] == []
-    assert body["assumed"] and body["precision"] == "float32"
-    spec = body["spec"]
-    assert harness.traffic.hash_bits(spec) == spec["code_len"] - math.ceil(
-        math.log2(spec["m"]))
+    assert body["reduced"] == entry["reduced"] and body["assumed"]
+    assert callable(harness.load_kind(body).judge)
     assert any(config == w["config"] for w in MANIFEST["workloads"])
+    if body["kind"] == "rangelsh":
+        assert body["reduced"] == [] and body["precision"] == "float32"
+        spec = body["spec"]
+        assert traffic.hash_bits(spec) == spec["code_len"] - math.ceil(
+            math.log2(spec["m"]))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -91,15 +95,17 @@ def test_cell_files_load_by_name(cell):
     assert set(entry) == {"name", "config", "traffic", "chips", "why"}
     assert entry["chips"] == 1 and _line(entry["why"])
     loaded = harness.resolve_cell(MANIFEST, cell)
+    kind = harness.load_kind(loaded.config)
     assert loaded.mix["name"] == entry["traffic"]
-    assert loaded.mix["plan"] in ("per_batch", "once")
-    assert loaded.workload["sample_batches"] >= 1
     assert loaded.workload["build_repeats"] >= 1
     limits = loaded.workload["limits"]
-    assert set(limits) == set(harness.check.COMPARED)
-    exact = ("outside_candidates", "budgets_differ")
-    assert all(limits[n] == 0 for n in exact)
-    assert all(v > 0 for n, v in limits.items() if n not in exact)
+    assert set(limits) == set(kind.COMPARED)
+    if loaded.config["kind"] == "rangelsh":
+        assert loaded.mix["plan"] in ("per_batch", "once")
+        assert loaded.workload["sample_batches"] >= 1
+        exact = ("outside_candidates", "budgets_differ")
+        assert all(limits[n] == 0 for n in exact)
+        assert all(v > 0 for n, v in limits.items() if n not in exact)
     reported = {m["name"] for m in loaded.end_to_end}
     assert "setup_s" in reported and len(reported) >= 2
     assert loaded.per_layer

@@ -12,13 +12,16 @@ import pytest
 import torch
 
 from mipsbench import check, harness, traffic
+from mipsbench.kinds import rangelsh
 from mipsbench.reference import rangelsh as ref
 from repro_torch.core import planner
 from repro_torch.core.hashing import pack_bits
 
 ROOT = Path(__file__).resolve().parents[1]
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in MANIFEST["workloads"]]
+CELLS = [w["name"] for w in MANIFEST["workloads"]
+         if harness.resolve_cell(MANIFEST, w["name"]).config["kind"]
+         == "rangelsh"]
 TINY = {"config": {"n": 6000, "d": 24}, "mix": {"pool_batches": 6,
                                                  "batch": 16}}
 PLANS = ("once", "per_batch")     # the mixes' two ways to plan a batch
@@ -33,14 +36,13 @@ def both_sides(request):
                                 {**TINY, "mix": {**TINY["mix"], "plan": plan}})
     cpu = torch.device("cpu")
     inputs = traffic.make_inputs(cell.config, cell.mix, 20260118, cpu)
-    prog = harness.set_up(cell.config, inputs, cpu, lambda: None)
-    call, slots, planned = harness.batch_caller(prog, cell.config, cell.mix,
-                                                inputs.pool)
+    prog = rangelsh.set_up(cell.config, inputs, cpu, lambda: None)
+    call, slots = rangelsh.caller(prog, cell.config, cell.mix, inputs)
     answers = [call(s) for s in range(slots)]
-    k, target = cell.config["k"], cell.config["spec"]["recall_target"]
-    budgets = planned or planner.resolve_budgets(prog.index.calib, target,
-                                                 k=k).budgets
-    index, ref_budgets = harness.reference_side(inputs, cell.config, "f32")
+    budgets = rangelsh.served(prog, harness.Window(
+        list(range(slots)), torch.stack([a[0] for a in answers]),
+        torch.stack([a[1] for a in answers]), [], 0.0)).budgets
+    index, ref_budgets = rangelsh.reference_side(inputs, cell.config, "f32")
     return cell, inputs, prog, answers, budgets, index, ref_budgets
 
 
@@ -133,7 +135,7 @@ def test_admitted_is_the_answers_candidate_set():
     cell = harness.resolve_cell(MANIFEST, CELLS[0], TINY)
     inputs = traffic.make_inputs(cell.config, cell.mix, 20260119,
                                  torch.device("cpu"))
-    index, budgets = harness.reference_side(inputs, cell.config, "f32")
+    index, budgets = rangelsh.reference_side(inputs, cell.config, "f32")
     q = inputs.pool[:16]
     cand = ref.candidates(index, inputs.projections, q, budgets, "f32")
     assert (cand.sum(dim=1) == sum(budgets)).all()

@@ -15,7 +15,9 @@ from mipsbench import harness
 
 ROOT = Path(__file__).resolve().parents[1]
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in MANIFEST["workloads"]]
+CELLS = [w["name"] for w in MANIFEST["workloads"]
+         if harness.resolve_cell(MANIFEST, w["name"]).config["kind"]
+         == "rangelsh"]
 SEED = 2 ** 31 + 91
 STAGE_SPANS = {"runs_ms": "repro.engine.runs",
                "fused_score_ms": "repro.engine.fused_score",
