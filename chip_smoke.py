@@ -2218,7 +2218,7 @@ def serve_one_model(arch, layers, heads, rows, seed, ops, dev, card):
                 step_ms.append(1e3 * (time.perf_counter() - t0))
                 hidden_seen.append(h)
                 for n in heads:
-                    toks[n].append(servers[n]._head_token(h, unembed))
+                    toks[n].append(servers[n].head_topk(h)[1][:, 0])
                 tok = toks["exact"][-1]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t_loop
@@ -2245,7 +2245,7 @@ def serve_one_model(arch, layers, heads, rows, seed, ops, dev, card):
                     cfg, caches, cfg.num_patches + MODEL_PROMPT
                     + MODEL_STEPS)
                 hidden_seen.append(h)
-                p_toks = {n: [servers[n]._head_token(h, unembed)]
+                p_toks = {n: [servers[n].head_topk(h)[1][:, 0]]
                           for n in ("exact", "lsh_dense")}
                 for t in range(MODEL_STEPS - 1):
                     h, caches = lm.decode_step(
@@ -2254,7 +2254,7 @@ def serve_one_model(arch, layers, heads, rows, seed, ops, dev, card):
                         logits_mode="none")
                     hidden_seen.append(h)
                     for n in p_toks:
-                        p_toks[n].append(servers[n]._head_token(h, unembed))
+                        p_toks[n].append(servers[n].head_topk(h)[1][:, 0])
                 del caches, patches
         torch.cuda.synchronize()
     finally:

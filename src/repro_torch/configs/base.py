@@ -7,6 +7,15 @@ Every assigned architecture gets a ``repro_torch/configs/<id>.py`` exporting
 size while preserving its family-specific structure (MoE, MLA, hybrid
 pattern, ...).
 
+``ARCH_IDS`` are the reference's ten, the dry run's cells. The port serves
+more (``SERVED_ARCH_IDS``: DeepSeek-V2-Lite), and their settings need keys
+the reference has not: YaRN rope scaling (``ModelConfig.rope_scaling``),
+leading dense layers (``first_dense``), MLA without query compression
+(``MLAConfig.q_rank=None``), a shared expert of its own width
+(``MoEConfig.shared_d_ff``), unrenormalised gates (``norm_topk=False``) and
+dropless routing (``capacity_factor=None``). Each defaults to the
+reference's behaviour, so the ten configs are unchanged.
+
 Shapes: each arch is paired with the assigned LM shape set. ``train_*``
 lowers ``train_step``; ``decode_*``/``long_*`` lower ``serve_step`` (one new
 token against a seq_len KV cache); ``prefill_*`` lowers ``prefill_step``.
@@ -26,12 +35,41 @@ class MoEConfig:
     every: int = 1            # MoE at layer l iff l % every == every - 1
     d_ff: Optional[int] = None  # expert hidden (defaults to model d_ff)
     shared_expert: bool = False  # llama4-style always-on shared expert
-    capacity_factor: float = 1.25
+    # None: dropless, every (token, expert) slot computed (sort-by-expert
+    # dispatch, models/moe.py); else GShard's per-group capacity
+    capacity_factor: Optional[float] = 1.25
+    # the shared expert's SwiGLU width (DeepSeek's n_shared_experts x
+    # moe_intermediate_size); None: one expert's width
+    shared_d_ff: Optional[int] = None
+    # renormalise the top-k gates to sum to one (False: the softmax
+    # probabilities as they are, DeepSeek-V2's norm_topk_prob=false)
+    norm_topk: bool = True
+
+    @property
+    def dropless(self) -> bool:
+        return self.capacity_factor is None
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnConfig:
+    """YaRN rope scaling (Peng et al. 2023, as DeepSeek-V2 configures it):
+    the inverse frequencies blend the original and the ``factor``-times
+    slower ones by a linear ramp between the correction dimensions of
+    ``beta_fast`` and ``beta_slow`` rotations over
+    ``original_max_position`` positions; ``mscale`` and
+    ``mscale_all_dim`` give the cos/sin factor and, squared, the
+    softmax-scale factor of the attention that uses it."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:
-    q_rank: int = 768
+    q_rank: Optional[int] = 768   # None: no query compression (q = x W_q)
     kv_rank: int = 256
     nope_dim: int = 64
     rope_dim: int = 32
@@ -72,6 +110,11 @@ class ModelConfig:
     local_window: Optional[int] = None      # gemma2: 4096, alternating
     local_global_alternate: bool = False
     rope_theta: float = 10000.0
+    rope_scaling: Optional[YarnConfig] = None
+    # layers 0 .. first_dense - 1: attention blocks with a dense SwiGLU of
+    # d_ff, held outside the period stack (DeepSeek's first_k_dense_replace);
+    # the pattern and the MoE layers cover the n_layers - first_dense after
+    first_dense: int = 0
     # block pattern: period-P list of layer kinds ("attn" | "mamba" |
     # "mlstm" | "slstm"); None => all "attn"
     pattern: Optional[Tuple[str, ...]] = None
@@ -103,8 +146,15 @@ class ModelConfig:
         return self.pattern or ("attn",)
 
     def is_moe_layer(self, layer_idx: int) -> bool:
+        """Whether pattern position ``layer_idx`` of the period stack (the
+        layers after the ``first_dense`` leading ones) is an MoE layer."""
         return (self.moe is not None
                 and layer_idx % self.moe.every == self.moe.every - 1)
+
+    @property
+    def stacked_layers(self) -> int:
+        """The layers of the period stack: all but the leading dense ones."""
+        return self.n_layers - self.first_dense
 
     @property
     def supports_long_context(self) -> bool:
@@ -119,16 +169,23 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """CPU-smoke-test size preserving family structure."""
         period = len(self.layer_pattern)
-        moe = (dataclasses.replace(self.moe, num_experts=4,
-                                   top_k=min(self.moe.top_k, 2),
-                                   d_ff=32 if self.moe.d_ff else None)
-               if self.moe else None)
-        mla = (dataclasses.replace(self.mla, q_rank=24, kv_rank=16,
-                                   nope_dim=8, rope_dim=4, v_dim=8)
+        moe = None
+        if self.moe:
+            moe = dataclasses.replace(self.moe, num_experts=4,
+                                      top_k=min(self.moe.top_k, 2),
+                                      d_ff=32 if self.moe.d_ff else None)
+            if self.moe.shared_d_ff:    # keep its ratio to an expert's
+                expert = self.moe.d_ff or self.d_ff
+                moe = dataclasses.replace(moe, shared_d_ff=(
+                    (moe.d_ff or 128) * self.moe.shared_d_ff // expert))
+        mla = (dataclasses.replace(self.mla,
+                                   q_rank=24 if self.mla.q_rank else None,
+                                   kv_rank=16, nope_dim=8, rope_dim=4,
+                                   v_dim=8)
                if self.mla else None)
         return dataclasses.replace(
             self,
-            n_layers=max(2, 2 * period),
+            n_layers=self.first_dense + max(2, 2 * period),
             d_model=64,
             n_heads=4,
             n_kv=min(self.n_kv, 2) if self.n_kv < self.n_heads else 4,
@@ -173,10 +230,16 @@ ARCH_IDS: List[str] = [
 ]
 
 
+#: configurations the port serves beyond the reference's ten (no dry-run
+#: cells: the mesh path does not take them)
+SERVED_ARCH_IDS: List[str] = ["deepseek_v2_lite"]
+
+
 def get_config(arch: str) -> ModelConfig:
     arch = arch.replace("-", "_").replace(".", "_")
-    if arch not in ARCH_IDS:
-        raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if arch not in ARCH_IDS + SERVED_ARCH_IDS:
+        raise ValueError(f"unknown arch {arch!r}; known: "
+                         f"{ARCH_IDS + SERVED_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
 

@@ -16,7 +16,11 @@ a cache. The sharded LSH head runs over a shard group
 
 ``BatchedServer`` is a small request loop: prefills a batch, then
 greedy-decodes it through whichever head is mounted — exact, LSH dense,
-LSH bucket, fused (f32 or int8 phase 1), sharded, or streaming.
+LSH bucket, fused (f32 or int8 phase 1), sharded, or streaming. Its two
+calls are :meth:`BatchedServer.prefill` (the batch's prompts, in chunks of
+at most ``PREFILL_TOKENS`` tokens, into caches of ``max_seq`` slots) and
+:meth:`BatchedServer.step` (one decode step of the batch, returning the
+head's top-k); ``generate`` is the one, then the other in a loop.
 
 Live catalog updates: constructing the server with a ``streaming_index``
 (a :class:`repro_torch.streaming.MutableIndex` over the unembedding
@@ -36,14 +40,44 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import stable_topk
 from repro_torch.models import lm, lm_head
-from repro_torch.obs.trace import span_or_null
+from repro_torch.obs.trace import DeviceSpans, span_or_null
 from repro_torch.obs.tracker import resolve_tracker
 from repro_torch.tree import leaves
 
 
 FSDP_SERVE_THRESHOLD = 2e10  # params above this serve with FSDP+TP
 MODEL_AXIS = "model"
+#: tokens one prefill chunk holds: a batch of longer prompts is prefilled
+#: a few sequences at a time (at least one), so that activations stay
+#: small beside the weights and caches (64 x 8,192 tokens of
+#: DeepSeek-V2-Lite in one chunk would not fit an 80 GB card)
+PREFILL_TOKENS = 1 << 15
+#: tokens an LSH head that runs inside the decode step returns
+#: (``make_decode_step``'s ``topk``)
+STEP_TOPK = 8
+
+
+class _StepGraph(NamedTuple):
+    """A decode step captured as a CUDA graph over one set of caches: its
+    static token and position inputs, its static hidden output and its
+    layers' span sites."""
+    caches: Any
+    tokens: torch.Tensor
+    pos: torch.Tensor
+    graph: Any
+    hidden: torch.Tensor
+    spans: Any
+
+
+class DecodeOut(NamedTuple):
+    """One decode step's answer: the head's top-k logit values and token
+    ids (B, k), and the step's final hidden state (B, d) where the head
+    runs after the step (None where it runs inside it, or is exact)."""
+    vals: torch.Tensor
+    ids: torch.Tensor
+    hidden: Optional[torch.Tensor]
 
 
 def param_count(params) -> int:
@@ -62,11 +96,12 @@ def _full(x):
 
 def make_decode_step(cfg: ModelConfig, *, mesh=None,
                      fsdp_axis: Optional[str] = None,
-                     lsh_decode: bool = False, topk: int = 8,
+                     lsh_decode: bool = False, topk: int = STEP_TOPK,
                      num_probe: int = 1024, vocab_meta=None,
                      engine: str = "dense",
                      return_hidden: bool = False) -> Callable:
-    """Returns ``fn(params, tokens, caches, pos[, vidx_arrays])``.
+    """Returns ``fn(params, tokens, caches, pos[, vidx_arrays],
+    tracker=None)`` (``tracker``: the model's layer spans and counters).
 
     With ``return_hidden`` the step skips the logit head entirely and
     returns the final hidden state (B, d). With ``lsh_decode`` the output
@@ -105,9 +140,11 @@ def make_decode_step(cfg: ModelConfig, *, mesh=None,
 
     mode = "none" if (lsh_decode or return_hidden) else "full"
 
-    def step(params, tokens, caches, cache_pos, vidx_arrays=None):
+    def step(params, tokens, caches, cache_pos, vidx_arrays=None,
+             tracker=None):
         out, new_caches = lm.decode_step(params, tokens, caches, cache_pos,
-                                         cfg, logits_mode=mode)
+                                         cfg, logits_mode=mode,
+                                         tracker=tracker)
         if return_hidden or not lsh_decode:
             return out, new_caches
         return head(params, out, vidx_arrays), new_caches
@@ -125,14 +162,15 @@ def make_decode_step(cfg: ModelConfig, *, mesh=None,
     cspecs = shd.cache_specs(cfg, mesh)
     tspec = shd.Spec(shd.dp_axes(mesh))
 
-    def mesh_step(params, tokens, caches, cache_pos, vidx_arrays=None):
+    def mesh_step(params, tokens, caches, cache_pos, vidx_arrays=None,
+                  tracker=None):
         params = shd.to_shardings(mesh, pspecs, params)
         caches = shd.to_shardings(mesh, cspecs, caches)
         tokens = shd.distribute(tokens, mesh, tspec)
         with ambient_mesh(mesh), implicit_replication():
             out, new_caches = lm.decode_step(
                 params, tokens, caches, int(cache_pos), cfg,
-                seq_axis=MODEL_AXIS, logits_mode=mode)
+                seq_axis=MODEL_AXIS, logits_mode=mode, tracker=tracker)
             out = _full(out)
             if return_hidden or not lsh_decode:
                 return out, new_caches
@@ -276,6 +314,18 @@ class BatchedServer:
     streaming delta path is not sharded (``streaming_index`` takes
     precedence).
 
+    On the card, with a head that runs after the step (fused, sharded or
+    streaming) and a model whose step is capturable
+    (``lm.decode_capturable``: DeepSeek-V2's layout), :meth:`step` replays
+    the model's step as a CUDA graph, captured at the first step on a set
+    of caches (and again for new caches), so the host launches one graph
+    in place of some four thousand kernels. Tracked or not, the step is
+    that graph: its layers' spans are timed on the device inside it.
+
+    ``buckets``: a bucket store already built over ``vocab_index``
+    (``build_bucket_index``) for the bucket and fused heads; None builds
+    one.
+
     ``recall_target`` states the serving contract instead of a probe
     budget: the head index must carry planner calibration, and the budget
     (per-range for the sharded head, scalar for the frozen heads) is
@@ -283,9 +333,13 @@ class BatchedServer:
 
     ``tracker`` (a :class:`repro_torch.obs.Tracker`; None = ambient
     default) instruments the loop — batch size, prefill / decode-step /
-    topk-head spans, generated, inserted and deleted token counts — and is
-    handed down to the distributed head engine and to the streaming index
-    when they carry none of their own. Generated tokens are unchanged.
+    topk-head spans, generated, inserted and deleted token counts, and the
+    model's layer spans and routing counters (``models/lm.py``; those of
+    a replayed graph are emitted after its head) — and is handed down to
+    the distributed head engine, the fused head's engine and the
+    streaming index when they carry none of their own; setting
+    ``server.tracker`` later hands it down the same way. Generated tokens
+    are unchanged.
     The reference's ``repro.serve.decode_jit_cache`` gauge has no
     counterpart: nothing is compiled.
     """
@@ -301,8 +355,11 @@ class BatchedServer:
                  shard_group=None,
                  token_map=None,
                  recall_target: Optional[float] = None,
-                 tracker=None, device=None):
+                 tracker=None, device=None, buckets=None):
         self.device = resolve_device(device)
+        self._capturable = (self.device.type == "cuda"
+                            and lm.decode_capturable(cfg))
+        self._graph: Optional[_StepGraph] = None
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"the params live on {params['embed'].device}, "
                              f"the server was asked for {self.device}")
@@ -310,17 +367,15 @@ class BatchedServer:
         self.params = params
         self.max_seq = max_seq
         self.batch = batch
-        self._fused_eng = None
+        self._fused_eng = self._dist = None
+        self.streaming_index = streaming_index
+        self._tracker = None
         self.tracker = resolve_tracker(tracker)
-        if streaming_index is not None and self.tracker is not None \
-                and streaming_index.tracker is None:
-            streaming_index.set_tracker(self.tracker)
         self.lsh_decode = lsh_decode and streaming_index is None \
             and sharded_index is None
         self.vocab_index = vocab_index
         self.num_probe = num_probe
         self.engine = engine
-        self.streaming_index = streaming_index
         self.sharded_index = None
         # recall contract: resolve the serving budget from the head index's
         # planner calibration once, at construction. The streaming head
@@ -416,6 +471,7 @@ class BatchedServer:
                 hash_bits=vocab_index.hash_bits, eps=vocab_index.eps,
                 calib=vocab_index.calib)
             self._fused_eng = QueryEngine(head, engine="fused",
+                                          buckets=buckets,
                                           quantized=quantized,
                                           tracker=self.tracker,
                                           device=self.device)
@@ -433,7 +489,8 @@ class BatchedServer:
         self._buckets = None
         if lsh_decode and engine == "bucket":
             from repro_torch.core.bucket_index import build_bucket_index
-            self._buckets = build_bucket_index(vocab_index)
+            self._buckets = (build_bucket_index(vocab_index)
+                             if buckets is None else buckets)
             self._vidx_arrays.update(bucket_arrays(self._buckets))
         # self.num_probe, not the ctor arg: a recall_target resolved the
         # planned budget above, and the step must honor it for every token
@@ -441,6 +498,22 @@ class BatchedServer:
                                           vocab_meta=meta,
                                           num_probe=self.num_probe,
                                           engine=engine)
+
+    @property
+    def tracker(self):
+        return self._tracker
+
+    @tracker.setter
+    def tracker(self, tracker) -> None:
+        """The server's tracker, handed down to each head engine that
+        carries none of its own (or the one handed down before)."""
+        before, self._tracker = self._tracker, tracker
+        for head in (self._fused_eng, self._dist):
+            if head is not None and head.tracker is before:
+                head.tracker = tracker
+        si = self.streaming_index
+        if si is not None and si.tracker is before:
+            si.set_tracker(tracker)
 
     # -- streaming endpoints -------------------------------------------------
 
@@ -484,96 +557,183 @@ class BatchedServer:
             self.tracker.count("repro.serve.deleted_tokens",
                                np.atleast_1d(np.asarray(ids)).size)
 
-    def _streaming_topk(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Greedy token via the mutable head (monotone final softcaps
-        commute with top-1, so the cap is skipped). Under a recall contract
-        the target is re-planned per step — the index raises if a
-        repartition staled the calibration."""
+    def _streaming_topk(self, hidden: torch.Tensor, k: int):
+        """Top-k via the mutable head, ids mapped to tokens. Under a recall
+        contract the target is re-planned per step — the index raises if
+        a repartition staled the calibration."""
         si = self.streaming_index
         if self._recall_target is not None:
-            _, ids = si.query(hidden.to(torch.float32), 1,
-                              recall_target=self._recall_target)
+            vals, ids = si.query(hidden.to(torch.float32), k,
+                                 recall_target=self._recall_target)
         else:
-            _, ids = si.query(hidden.to(torch.float32), 1, self.num_probe)
-        return self._token_map_dev[ids[:, 0].long()]
+            vals, ids = si.query(hidden.to(torch.float32), k,
+                                 self.num_probe)
+        return vals, self._token_map_dev[ids.long()]
 
-    def _sharded_topk(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Greedy token via the distributed LSH head (monotone final
-        softcaps commute with top-1; index ids == vocab rows)."""
+    def _sharded_topk(self, hidden: torch.Tensor, k: int):
+        """Top-k via the distributed LSH head (index ids == vocab rows)."""
         if self._budgets is not None:
-            _, ids = self._dist.query(hidden.to(torch.float32), 1,
-                                      budgets=self._budgets)
-        else:
-            probe = min(self.num_probe, self.sharded_index.num_items)
-            _, ids = self._dist.query(hidden.to(torch.float32), 1, probe)
-        return ids[:, 0].long()
+            return self._dist.query(hidden.to(torch.float32), k,
+                                    budgets=self._budgets)
+        probe = min(self.num_probe, self.sharded_index.num_items)
+        return self._dist.query(hidden.to(torch.float32), k, probe)
 
     # -- generation ----------------------------------------------------------
 
-    def _head_token(self, hidden: torch.Tensor, unembed: torch.Tensor
-                    ) -> torch.Tensor:
-        """Greedy token via whichever LSH/exact head is mounted, timed as
-        the ``repro.serve.topk_head`` stage."""
-        with span_or_null(self.tracker, "repro.serve.topk_head") as sp:
-            if self.streaming_index is not None:
-                tok = self._streaming_topk(hidden)
-            elif self.sharded_index is not None:
-                tok = self._sharded_topk(hidden)
-            elif self._fused_eng is not None:
-                # monotone final softcaps commute with top-1, so the cap
-                # is skipped (same argument as the streaming head)
-                _, ids = self._fused_eng.query(
-                    hidden.to(torch.float32), 1, self.num_probe)
-                tok = ids[:, 0].long()
-            elif self.lsh_decode:
-                _, ids = lm_head.lsh_topk_tokens(
-                    self.vocab_index, hidden, unembed, k=1,
-                    num_probe=self.num_probe,
-                    final_softcap=self.cfg.final_softcap,
-                    buckets=self._buckets)
-                tok = ids[:, 0]
-            else:
-                _, ids = lm_head.exact_topk_tokens(
-                    hidden, unembed, 1, self.cfg.final_softcap)
-                tok = ids[:, 0]
-            return sp.sync(tok)
-
-    def generate(self, prompts, steps: int) -> torch.Tensor:
-        """prompts: (B, S0) ids -> generated ids (B, steps) int64."""
+    def prefill(self, prompts, *, tail: int = 1):
+        """Prefill the batch: prompts (B, S0) ids -> (the final hidden
+        states of the prompts' last ``tail`` positions (B, tail, d), caches
+        of ``max_seq`` slots holding the prompts), timed as the
+        ``repro.serve.prefill`` stage. Sequences go through the model a
+        chunk at a time, each chunk at most ``PREFILL_TOKENS`` tokens (at
+        least one sequence), and each chunk's caches are written into the
+        batch's; no sequence sees another, so the chunks change nothing
+        that a sequence computes."""
         prompts = torch.as_tensor(prompts, device=self.device).long()
         B, S0 = prompts.shape
         tr = self.tracker
         if tr is not None:
             tr.gauge("repro.serve.batch_size", B)
+        rows = max(1, PREFILL_TOKENS // S0)
         with span_or_null(tr, "repro.serve.prefill") as sp:
-            last_hidden, pf_caches = lm.prefill(self.params, prompts,
-                                                self.cfg)
-            sp.sync(last_hidden)
-        caches = lm.extend_cache(self.cfg, pf_caches, self.max_seq)
-        # first generated token comes from the prefill's last hidden state
+            caches = lm.init_cache(self.cfg, B, self.max_seq,
+                                   device=self.device)
+            kinds = lm.cache_kinds(self.cfg)
+            tails = []
+            for b0 in range(0, B, rows):
+                h, part = lm.prefill_hidden(self.params,
+                                            prompts[b0:b0 + rows], self.cfg,
+                                            tracker=tr)
+                tails.append(h[:, -tail:])
+                for kind, dst, src in zip(kinds, caches, part):
+                    for d, s_ in zip(dst, src):
+                        if kind == "attn":   # slots 0 .. S0-1 of max_seq
+                            d[:, b0:b0 + rows, :S0] = s_
+                        else:
+                            d[:, b0:b0 + rows] = s_
+                del h, part
+            hidden = sp.sync(torch.cat(tails))
+        return hidden, caches
+
+    def head_topk(self, hidden: torch.Tensor, k: int = 1):
+        """(vals, ids) (B, k): the top-k tokens of final hidden states (B,
+        d) through whichever LSH/exact head is mounted, timed as the
+        ``repro.serve.topk_head`` stage. A final softcap, monotone, is
+        applied to the values and leaves the order as it is."""
         unembed = lm._unembed_matrix(self.params, self.cfg)
-        tok = self._head_token(last_hidden, unembed)
+        cap = self.cfg.final_softcap
+        with span_or_null(self.tracker, "repro.serve.topk_head") as sp:
+            if self.streaming_index is not None:
+                vals, ids = self._streaming_topk(hidden, k)
+            elif self.sharded_index is not None:
+                vals, ids = self._sharded_topk(hidden, k)
+            elif self._fused_eng is not None:
+                vals, ids = self._fused_eng.query(
+                    hidden.to(torch.float32), k, self.num_probe)
+            elif self.lsh_decode:
+                vals, ids = lm_head.lsh_topk_tokens(
+                    self.vocab_index, hidden, unembed, k=k,
+                    num_probe=self.num_probe, final_softcap=cap,
+                    buckets=self._buckets)
+                cap = None
+            else:
+                vals, ids = lm_head.exact_topk_tokens(hidden, unembed, k,
+                                                      cap)
+                cap = None
+            if cap is not None:
+                vals = cap * torch.tanh(vals / cap)
+            sp.sync((vals, ids))
+        return vals, ids.long()
+
+    def step(self, tokens: torch.Tensor, caches, pos, k: int = 1
+             ) -> DecodeOut:
+        """One decode step of the batch: tokens (B,) at cache slot
+        ``pos``, the caches written in place; returns the head's top-k
+        (the exact head's from the step's logits, an in-step LSH head's at
+        most ``STEP_TOPK``). Timed as the ``repro.serve.decode_step``
+        stage; a head that runs after the model is timed after it, as the
+        ``repro.serve.topk_head`` stage."""
+        tr = self.tracker
+        args = (self.params, tokens, caches, pos)
+        after = (self.streaming_index is not None
+                 or self.sharded_index is not None
+                 or self._fused_eng is not None)
+        launched = None if tr is None else tr.clock()
+        with span_or_null(tr, "repro.serve.decode_step") as sp:
+            if after and self._capturable:
+                hidden = sp.sync(self._replay(tokens, caches, pos))
+            elif after:
+                hidden = sp.sync(self.decode_fn(*args, tracker=tr)[0])
+            elif self.lsh_decode:
+                # head fused into the step
+                if k > STEP_TOPK:
+                    raise ValueError(f"the in-step LSH head returns "
+                                     f"{STEP_TOPK} tokens, not {k}")
+                (vals, ids), _ = self.decode_fn(*args, self._vidx_arrays,
+                                                tracker=tr)
+                out = DecodeOut(vals[:, :k], ids[:, :k].long(), None)
+                sp.sync((out.vals, out.ids))
+            else:
+                logits, _ = self.decode_fn(*args, tracker=tr)
+                if k == 1:      # the first of equal maxima, as stable_topk
+                    ids = torch.argmax(logits, dim=-1, keepdim=True)
+                    vals = torch.gather(logits, -1, ids)
+                else:
+                    vals, ids = stable_topk(logits, k)
+                out = DecodeOut(vals, ids.long(), None)
+                sp.sync((out.vals, out.ids))
+        if after:
+            out = DecodeOut(*self.head_topk(hidden, k), hidden)
+            if self._capturable and tr is not None:
+                self._graph.spans.emit(tr, launched)
+        return out
+
+    def _replay(self, tokens: torch.Tensor, caches, pos) -> torch.Tensor:
+        """The step's final hidden state from the captured graph: the
+        tokens and position copied into its inputs, one replay, its output
+        copied out (the next replay overwrites it). Captured first where
+        the caches are new: one eager run on a side stream (lazy
+        initialisations; it writes the cache slot the step writes, with
+        the same values), then the capture, its layers' span sites
+        recording into a ``DeviceSpans``."""
+        g = self._graph
+        if g is None or g.caches is not caches:
+            self._graph = None      # the last graph's memory goes first
+            static_tok = tokens.clone()
+            static_pos = torch.full((), int(pos), dtype=torch.int64,
+                                    device=self.device)
+
+            def run(tracker=None):
+                return self.decode_fn(self.params, static_tok, caches,
+                                      static_pos, tracker=tracker)[0]
+
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph, spans = torch.cuda.CUDAGraph(), DeviceSpans()
+            with torch.cuda.graph(graph):
+                hidden = run(spans)
+            g = self._graph = _StepGraph(caches, static_tok, static_pos,
+                                         graph, hidden, spans)
+        g.tokens.copy_(tokens)
+        g.pos.fill_(int(pos))
+        g.graph.replay()
+        return g.hidden.clone()
+
+    def generate(self, prompts, steps: int) -> torch.Tensor:
+        """prompts: (B, S0) ids -> generated ids (B, steps) int64: one
+        :meth:`prefill`, the first token from the head on the prompts' last
+        hidden state, then ``steps - 1`` :meth:`step` calls, each fed the
+        last step's top token."""
+        hidden, caches = self.prefill(prompts)
+        B, S0 = hidden.shape[0], torch.as_tensor(prompts).shape[1]
+        tok = self.head_topk(hidden[:, -1], 1)[1][:, 0]
         out = [tok]
         for t in range(steps - 1):
-            args = (self.params, tok, caches, S0 + t)
-            if self.streaming_index is not None \
-                    or self.sharded_index is not None \
-                    or self._fused_eng is not None:
-                with span_or_null(tr, "repro.serve.decode_step") as sp:
-                    hidden, caches = self.decode_fn(*args)
-                    sp.sync(hidden)
-                tok = self._head_token(hidden, unembed)
-            elif self.lsh_decode:
-                # head fused into the step: one span covers both
-                with span_or_null(tr, "repro.serve.decode_step") as sp:
-                    (vals, ids), caches = self.decode_fn(*args,
-                                                         self._vidx_arrays)
-                    tok = sp.sync(ids[:, 0])
-            else:
-                with span_or_null(tr, "repro.serve.decode_step") as sp:
-                    logits, caches = self.decode_fn(*args)
-                    tok = sp.sync(torch.argmax(logits, dim=-1))
+            tok = self.step(tok, caches, S0 + t).ids[:, 0]
             out.append(tok)
-        if tr is not None:
-            tr.count("repro.serve.generated_tokens", B * steps)
+        if self.tracker is not None:
+            self.tracker.count("repro.serve.generated_tokens", B * steps)
         return torch.stack(out, dim=1)

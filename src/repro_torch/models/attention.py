@@ -23,7 +23,11 @@ Layouts are the reference's: q (B, S, H, hd), k and v (B, S, KV, hd).
 MLA (MiniCPM3/DeepSeek-style latent attention) caches the compressed
 ``c_kv`` and the shared ``k_rope`` only; decode uses the absorbed form
 (scores via ``q W_uk^T c_kv``), so the full K/V are never formed at
-decode time.
+decode time. The query is compressed (``w_dq``, ``q_norm``, ``w_uq``) or,
+with ``MLAConfig.q_rank=None`` (DeepSeek-V2-Lite), one projection
+``w_q``; under YaRN rope scaling (``cfg.rope_scaling``) the rope halves
+take YaRN's frequencies and the softmax scale its ``mscale`` squared, in
+prefill and in the absorbed decode alike.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (PARAM_DTYPE, apply_rope, dense_init,
                                        merge_heads, pad, rms_norm,
-                                       softcap, split_heads)
+                                       softcap, split_heads,
+                                       yarn_softmax_factor)
 
 NEG_INF = -1e30
 # flash_attention always skips the kv chunks above the diagonal and outside
@@ -59,12 +64,18 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig,
     if cfg.mla is not None:
         m = cfg.mla
         H = cfg.n_heads
+        if m.q_rank is None:        # no query compression: q = x W_q
+            q = {"w_q": dense_init(generator, stack + (
+                cfg.d_model, H * (m.nope_dim + m.rope_dim)))}
+        else:
+            q = {"w_dq": dense_init(generator,
+                                    stack + (cfg.d_model, m.q_rank)),
+                 "q_norm": torch.zeros(stack + (m.q_rank,),
+                                       dtype=torch.float32, device=dev),
+                 "w_uq": dense_init(generator, stack + (
+                     m.q_rank, H * (m.nope_dim + m.rope_dim)))}
         return {
-            "w_dq": dense_init(generator, stack + (cfg.d_model, m.q_rank)),
-            "q_norm": torch.zeros(stack + (m.q_rank,), dtype=torch.float32,
-                                  device=dev),
-            "w_uq": dense_init(generator, stack + (
-                m.q_rank, H * (m.nope_dim + m.rope_dim))),
+            **q,
             "w_dkv": dense_init(generator, stack + (cfg.d_model, m.kv_rank)),
             "kv_norm": torch.zeros(stack + (m.kv_rank,), dtype=torch.float32,
                                    device=dev),
@@ -523,23 +534,40 @@ def _seq_sharded_decode(q, k_new, v_new, cache: AttnCache, cache_pos: int,
 # ---------------------------------------------------------------------------
 
 
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """``(nope + rope)^-0.5``, times YaRN's ``mscale`` squared under YaRN
+    rope scaling (DeepSeek-V2's softmax scale)."""
+    m = cfg.mla
+    return ((m.nope_dim + m.rope_dim) ** -0.5
+            * yarn_softmax_factor(cfg.rope_scaling))
+
+
+def _mla_query(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The per-head query (..., H, nope + rope): through the compressed
+    latent (``w_dq``, ``q_norm``, ``w_uq``), or ``x W_q`` where the
+    config has no query compression."""
+    if cfg.mla.q_rank is None:
+        return split_heads(x @ p["w_q"], cfg.n_heads)
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    return split_heads(cq @ p["w_uq"], cfg.n_heads)
+
+
 def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, AttnCache]:
     """Prefill MLA: K and V expanded from the latent, v padded to the qk
-    width for the shared flash core (then sliced), at scale
-    ``(nope + rope)^-0.5``. Returns (out, AttnCache(c_kv, k_rope))."""
+    width for the shared flash core (then sliced), at
+    :func:`mla_softmax_scale`. Returns (out, AttnCache(c_kv, k_rope))."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.n_heads
-    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
-    q = split_heads(cq @ p["w_uq"], H)
+    q = _mla_query(p, x, cfg)
     q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta, cfg.rope_scaling)
 
     c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
     k_rope = x @ p["w_kr"]                                # shared head
-    k_rope = apply_rope(k_rope[:, :, None, :], positions,
-                        cfg.rope_theta)[:, :, 0]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta,
+                        cfg.rope_scaling)[:, :, 0]
 
     k_nope = split_heads(c_kv @ p["w_uk"], H)
     v = split_heads(c_kv @ p["w_uv"], H)
@@ -549,7 +577,7 @@ def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
     qk_dim = m.nope_dim + m.rope_dim
     v_pad = pad(v, (0, qk_dim - m.v_dim))
     o = _flash(q_full, k_full, v_pad, positions, positions, causal=True,
-               scale=qk_dim ** -0.5)
+               scale=mla_softmax_scale(cfg))
     o = o[..., :m.v_dim]
     out = merge_heads(o) @ p["w_o"]
     return out, AttnCache(c_kv, k_rope)
@@ -564,6 +592,8 @@ def mla_decode(p, x: torch.Tensor, cache: AttnCache, cache_pos,
     cache.k = c_kv (B, S, kv_rank); cache.v = k_rope (B, S, rope_dim). The
     new latent and rope key are written into ``cache`` in place, as
     :func:`gqa_decode` writes; the returned cache is the same tensors.
+    ``cache_pos`` may be a 0-d device tensor: nothing then waits for the
+    device (the step can be captured in a CUDA graph).
     ``seq_axis``, as :func:`gqa_decode`'s: the latent and rope-key caches
     are DTensors sharded along their sequence on that mesh dimension, the
     owning shard writes the slot and the softmax over the positions is
@@ -574,20 +604,27 @@ def mla_decode(p, x: torch.Tensor, cache: AttnCache, cache_pos,
     B, _ = x.shape
     H = cfg.n_heads
     f32 = torch.float32
-    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
-    q = split_heads(cq @ p["w_uq"], H)
+    q = _mla_query(p, x, cfg)
     q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
-    pos = torch.as_tensor(cache_pos, device=x.device).reshape(1)
-    q_rope = apply_rope(q_rope[:, None], pos, cfg.rope_theta)[:, 0]
+    # a host int becomes a device tensor by a fill, not a copy: a copy
+    # from the host would wait for the device's queue in every layer
+    pos = (cache_pos.reshape(1) if torch.is_tensor(cache_pos)
+           else torch.full((1,), cache_pos, device=x.device))
+    q_rope = apply_rope(q_rope[:, None], pos, cfg.rope_theta,
+                        cfg.rope_scaling)[:, 0]
 
     c_new = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
     kr_new = x @ p["w_kr"]
-    kr_new = apply_rope(kr_new[:, None, None], pos, cfg.rope_theta)[:, 0, 0]
+    kr_new = apply_rope(kr_new[:, None, None], pos, cfg.rope_theta,
+                        cfg.rope_scaling)[:, 0, 0]
     w_uk = split_heads(p["w_uk"], H)
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope.to(f32), w_uk.to(f32))
     if seq_axis is None:
-        cache.k[:, cache_pos] = c_new.to(cache.k.dtype)
-        cache.v[:, cache_pos] = kr_new.to(cache.v.dtype)
+        # written through the position tensor: a 0-d tensor ``cache_pos``
+        # is never read back to the host (a captured CUDA graph replays
+        # the step at any position)
+        cache.k.index_copy_(1, pos, c_new[:, None].to(cache.k.dtype))
+        cache.v.index_copy_(1, pos, kr_new[:, None].to(cache.v.dtype))
         o_lat = _mla_attend(q_lat, q_rope, cache.k, cache.v, cache_pos, 0,
                             cfg)
     else:
@@ -612,11 +649,10 @@ def _mla_scores(q_lat, q_rope, c_kv, k_rope, cache_pos, offset: int,
                 cfg: ModelConfig) -> torch.Tensor:
     """MLA's masked absorbed scores (B, H, S) of the cache slots
     ``offset ..``: ``q_lat c_kv + q_rope k_rope`` in f32, scaled."""
-    m = cfg.mla
     f32 = torch.float32
     s = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv.to(f32))
          + torch.einsum("bhn,bsn->bhs", q_rope.to(f32), k_rope.to(f32)))
-    s = s * (m.nope_dim + m.rope_dim) ** -0.5
+    s = s * mla_softmax_scale(cfg)
     keep = offset + torch.arange(c_kv.shape[1], device=s.device) <= cache_pos
     return torch.where(keep, s, NEG_INF)
 

@@ -8,6 +8,7 @@ their tensors on the generator's device.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -188,14 +189,74 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                    device=device) / half)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature term ``0.1 mscale ln(factor) + 1``
+    (1 for a factor of at most 1)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def _yarn_correction_dim(rotations: float, dim: int, theta: float,
+                         positions: int) -> float:
+    """The rotary dimension whose wavelength fits ``rotations`` turns into
+    ``positions`` positions."""
+    return (dim * math.log(positions / (rotations * 2 * math.pi))
+            / (2 * math.log(theta)))
+
+
+def yarn_freqs(head_dim: int, theta: float, yarn, device=None
                ) -> torch.Tensor:
-    """Rotary position embedding. x: (..., S, H, hd); positions: (..., S)."""
+    """YaRN's inverse frequencies (``configs.base.YarnConfig``): pair i
+    keeps its original frequency below the correction dimension of
+    ``beta_fast`` rotations, takes the ``factor``-times slower one above
+    that of ``beta_slow``, and the linear ramp between blends the two."""
+    base = rope_freqs(head_dim, theta, device)
+    half = head_dim // 2
+    lo = max(math.floor(_yarn_correction_dim(
+        yarn.beta_fast, head_dim, theta, yarn.original_max_position)), 0)
+    hi = min(math.ceil(_yarn_correction_dim(
+        yarn.beta_slow, head_dim, theta, yarn.original_max_position)),
+        head_dim - 1)
+    if lo == hi:
+        hi += 0.001
+    ramp = torch.clamp((torch.arange(half, dtype=torch.float32,
+                                     device=device) - lo) / (hi - lo), 0, 1)
+    return base / yarn.factor * ramp + base * (1 - ramp)
+
+
+def yarn_cos_sin_factor(yarn) -> float:
+    """The factor on YaRN's cos and sin (1 where ``mscale`` equals
+    ``mscale_all_dim``, as in DeepSeek-V2)."""
+    return (yarn_mscale(yarn.factor, yarn.mscale)
+            / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
+
+
+def yarn_softmax_factor(yarn) -> float:
+    """The factor on the attention's softmax scale under YaRN:
+    ``yarn_mscale(factor, mscale_all_dim)`` squared (1 without YaRN or
+    with ``mscale_all_dim`` 0)."""
+    if yarn is None or not yarn.mscale_all_dim:
+        return 1.0
+    return yarn_mscale(yarn.factor, yarn.mscale_all_dim) ** 2
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               scaling=None) -> torch.Tensor:
+    """Rotary position embedding, the half-split layout (pair i rotates
+    columns i and hd/2 + i). x: (..., S, H, hd); positions: (..., S).
+    ``scaling``: a ``configs.base.YarnConfig`` (YaRN frequencies and
+    cos/sin factor) or None."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
+    if scaling is None:
+        freqs = rope_freqs(hd, theta, x.device)            # (hd/2,)
+    else:
+        freqs = yarn_freqs(hd, theta, scaling, x.device)
     ang = positions[..., None].to(torch.float32) * freqs   # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
+    if scaling is not None:
+        f = yarn_cos_sin_factor(scaling)
+        if f != 1.0:
+            cos, sin = cos * f, sin * f
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

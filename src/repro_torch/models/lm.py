@@ -11,6 +11,20 @@ loops over the repetitions (the reference's ``lax.scan``) and applies
 positions 0..P-1 in each. The encoder-decoder (whisper) dispatches to
 :mod:`repro_torch.models.encdec`.
 
+Leading dense layers (``cfg.first_dense``, DeepSeek's
+``first_k_dense_replace``) sit outside the period stack: attention blocks
+of pattern position 0's kind with a dense SwiGLU of ``d_ff``, their params
+under ``"lead"`` stacked over those layers, their cache the last entry of
+the cache tuple (after the pattern positions'). They run before the
+stack. A config without them (the reference's ten) has neither.
+
+With a tracker (``prefill``/``decode_step``'s ``tracker``) each layer's
+attention mixer is the span ``repro.model.attn`` and each MoE FFN the span
+``repro.model.moe`` (routing counters inside, ``models/moe.py``), both
+synchronised at their end; without one the layers record nothing. A
+step captured as a CUDA graph (:func:`decode_capturable`) is handed an
+``obs.trace.DeviceSpans`` instead, whose spans are timed on the device.
+
 Decode writes every cache in place: attention caches through their
 per-layer views, recurrent states (Mamba, mLSTM, sLSTM) by copying each
 step's new state into the stacked tensors; ``decode_step`` returns the
@@ -41,6 +55,7 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (PARAM_DTYPE, MetaGenerator,
                                        dense_init, embed_init, embed_lookup,
                                        rms_norm, softcap, swiglu, unstack)
+from repro_torch.obs.trace import span_or_null
 from repro_torch.parallel.sharding import constrain_batch_leading, settled
 
 PyTree = Any
@@ -65,9 +80,10 @@ def combined_period(cfg: ModelConfig) -> int:
         p = _lcm(p, cfg.moe.every)
     if cfg.local_global_alternate:
         p = _lcm(p, 2)
-    if cfg.n_layers % p:
-        raise ValueError(f"n_layers={cfg.n_layers} must be a multiple of "
-                         f"the combined layer period {p}")
+    if cfg.stacked_layers % p:
+        raise ValueError(f"n_layers={cfg.n_layers} less {cfg.first_dense} "
+                         f"leading dense must be a multiple of the "
+                         f"combined layer period {p}")
     return p
 
 
@@ -112,46 +128,56 @@ def _ffn_init(generator: torch.Generator, cfg: ModelConfig, is_moe: bool,
 
 
 def layer_init(generator: torch.Generator, cfg: ModelConfig, i: int,
-               stack: Tuple[int, ...] = ()) -> Dict:
+               stack: Tuple[int, ...] = (), *, dense: bool = False) -> Dict:
     """The params of pattern position ``i`` (``stack`` leading axes: the
-    repetitions, as the reference's vmapped init stacks them)."""
+    repetitions, as the reference's vmapped init stacks them); ``dense``:
+    a leading dense layer's, whose FFN is the SwiGLU of ``d_ff``."""
     dev = generator.device
     d = cfg.d_model
     return {
         "norm1": torch.zeros(stack + (d,), dtype=torch.float32, device=dev),
         "mixer": _mixer_init(generator, cfg, position_kind(cfg, i), stack),
         "norm2": torch.zeros(stack + (d,), dtype=torch.float32, device=dev),
-        "ffn": _ffn_init(generator, cfg, cfg.is_moe_layer(i), stack),
+        "ffn": _ffn_init(generator, cfg, cfg.is_moe_layer(i) and not dense,
+                         stack),
     }
 
 
-def _apply_ffn(p, x: torch.Tensor, cfg: ModelConfig, is_moe: bool
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _apply_ffn(p, x: torch.Tensor, cfg: ModelConfig, is_moe: bool,
+               tracker=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, aux loss): zero for an MLP-free block (``d_ff == 0``), the
-    MoE layer's, the audio GELU MLP's or the SwiGLU MLP's (aux 0)."""
+    MoE layer's (the span ``repro.model.moe`` with a tracker), the audio
+    GELU MLP's or the SwiGLU MLP's (aux 0)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.d_ff == 0:
         return torch.zeros_like(x), zero
     if is_moe:
-        return moe_mod.moe_forward(p, x, cfg)
+        with span_or_null(tracker, "repro.model.moe") as sp:
+            out, aux = moe_mod.moe_forward(p, x, cfg, tracker)
+            sp.sync(out)
+        return out, aux
     if cfg.family == "audio":
         return encdec._mlp(p, x), zero
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), zero
 
 
 def layer_forward(p, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig, i: int, *, causal: bool = True):
-    """Full-sequence block at pattern position i. Returns (x', cache, aux)."""
+                  cfg: ModelConfig, i: int, *, causal: bool = True,
+                  dense: bool = False, tracker=None):
+    """Full-sequence block at pattern position i (``dense``: a leading
+    dense layer). Returns (x', cache, aux)."""
     kind = position_kind(cfg, i)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
-        if cfg.mla is not None:
-            out, cache = attn.mla_forward(p["mixer"], h, positions, cfg)
-        else:
-            out, cache = attn.gqa_forward(
-                p["mixer"], h, positions, cfg,
-                layer_is_local=position_is_local(cfg, i), causal=causal,
-                use_rope=cfg.family != "audio")
+        with span_or_null(tracker, "repro.model.attn") as sp:
+            if cfg.mla is not None:
+                out, cache = attn.mla_forward(p["mixer"], h, positions, cfg)
+            else:
+                out, cache = attn.gqa_forward(
+                    p["mixer"], h, positions, cfg,
+                    layer_is_local=position_is_local(cfg, i), causal=causal,
+                    use_rope=cfg.family != "audio")
+            sp.sync(out)
     elif kind == "mamba":
         out, cache = ssm_mod.ssm_forward(p["mixer"], h, cfg)
     elif kind == "mlstm":
@@ -162,26 +188,32 @@ def layer_forward(p, x: torch.Tensor, positions: torch.Tensor,
         raise ValueError(kind)
     x = x + out
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    out, aux = _apply_ffn(p["ffn"], h, cfg, cfg.is_moe_layer(i))
+    out, aux = _apply_ffn(p["ffn"], h, cfg,
+                          cfg.is_moe_layer(i) and not dense, tracker)
     return x + out, cache, aux
 
 
 def layer_decode(p, x: torch.Tensor, cache, cache_pos, cfg: ModelConfig,
-                 i: int, *, seq_axis: Optional[str] = None):
+                 i: int, *, seq_axis: Optional[str] = None,
+                 dense: bool = False, tracker=None):
     """One-token block step. x: (B, d). Returns (x', cache', aux): an
     attention cache is written in place and returned; a recurrent mixer
     returns new state tensors. ``seq_axis``: the mesh dimension a DTensor
-    attention cache's sequence is sharded on (``attn.gqa_decode``)."""
+    attention cache's sequence is sharded on (``attn.gqa_decode``);
+    ``dense``: a leading dense layer."""
     kind = position_kind(cfg, i)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
-        if cfg.mla is not None:
-            out, cache = attn.mla_decode(p["mixer"], h, cache, cache_pos,
-                                         cfg, seq_axis=seq_axis)
-        else:
-            out, cache = attn.gqa_decode(
-                p["mixer"], h, cache, cache_pos, cfg,
-                layer_is_local=position_is_local(cfg, i), seq_axis=seq_axis)
+        with span_or_null(tracker, "repro.model.attn") as sp:
+            if cfg.mla is not None:
+                out, cache = attn.mla_decode(p["mixer"], h, cache, cache_pos,
+                                             cfg, seq_axis=seq_axis)
+            else:
+                out, cache = attn.gqa_decode(
+                    p["mixer"], h, cache, cache_pos, cfg,
+                    layer_is_local=position_is_local(cfg, i),
+                    seq_axis=seq_axis)
+            sp.sync(out)
     elif kind == "mamba":
         out, cache = ssm_mod.ssm_decode(p["mixer"], h, cache, cfg)
     elif kind == "mlstm":
@@ -192,12 +224,13 @@ def layer_decode(p, x: torch.Tensor, cache, cache_pos, cfg: ModelConfig,
         raise ValueError(kind)
     x = x + out
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    if cfg.is_moe_layer(i) and cfg.d_ff != 0:
+    if cfg.is_moe_layer(i) and not dense and cfg.d_ff != 0:
         # decode MoE: the batch as G groups of B / G tokens, capacity per
         # group (the reference's GShard layout)
         B, d = h.shape
         G = math.gcd(B, MOE_DECODE_GROUPS)
-        out, aux = _apply_ffn(p["ffn"], h.reshape(G, B // G, d), cfg, True)
+        out, aux = _apply_ffn(p["ffn"], h.reshape(G, B // G, d), cfg, True,
+                              tracker)
         out = out.reshape(B, d)
     else:
         out, aux = _apply_ffn(p["ffn"], h, cfg, False)
@@ -227,7 +260,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     if cfg.is_encoder_decoder:
         return encdec.init_params(generator, cfg)
     P = combined_period(cfg)
-    reps = cfg.n_layers // P
+    reps = cfg.stacked_layers // P
     params: Dict[str, Any] = {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
@@ -236,6 +269,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(generator,
                                        (cfg.d_model, cfg.padded_vocab))
+    if cfg.first_dense:
+        params["lead"] = layer_init(generator, cfg, 0, (cfg.first_dense,),
+                                    dense=True)
     for i in range(P):
         params[f"pos{i}"] = layer_init(generator, cfg, i, (reps,))
     if cfg.num_patches:
@@ -247,9 +283,39 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
 def _layers(params, cfg: ModelConfig) -> List[List]:
     """layers[r][i]: the params of repetition r at pattern position i."""
     P = combined_period(cfg)
-    reps = cfg.n_layers // P
+    reps = cfg.stacked_layers // P
     per_pos = [unstack(params[f"pos{i}"], reps) for i in range(P)]
     return [[per_pos[i][r] for i in range(P)] for r in range(reps)]
+
+
+def _lead_layers(params, cfg: ModelConfig) -> List:
+    """The params of each leading dense layer, in order (none for a config
+    without them)."""
+    if not cfg.first_dense:
+        return []
+    return unstack(params["lead"], cfg.first_dense)
+
+
+def cache_kinds(cfg: ModelConfig) -> List[str]:
+    """The mixer kind of each entry of the cache tuple: the pattern
+    positions', then the leading dense layers' (pattern position 0's
+    kind) where the config has them."""
+    P = combined_period(cfg)
+    kinds = [position_kind(cfg, i) for i in range(P)]
+    return kinds + [position_kind(cfg, 0)] * bool(cfg.first_dense)
+
+
+def decode_capturable(cfg: ModelConfig) -> bool:
+    """Whether the meshless :func:`decode_step`, given its position as a
+    0-d device tensor, can be captured as a CUDA graph, nothing in it
+    waiting for the device: MLA attention in every layer (its cache
+    written through the position tensor) with dropless MoE FFNs (segment
+    ends from the one-hot), DeepSeek-V2's layout, which the card's tests
+    check against the eager step. The other steps are not held to that
+    (GQA writes its cache at a host position) and run eagerly."""
+    return (not cfg.is_encoder_decoder and cfg.mla is not None
+            and cfg.moe is not None and cfg.moe.dropless
+            and all(kind == "attn" for kind in cache_kinds(cfg)))
 
 
 def _cache_layers(cache) -> List:
@@ -294,29 +360,34 @@ def mask_padding_logits(logits: torch.Tensor, cfg: ModelConfig
 
 
 def _period(layer: List, h: torch.Tensor, aux: torch.Tensor,
-            positions: torch.Tensor, cfg: ModelConfig, causal: bool):
-    """One repetition of the pattern: positions 0..P-1 on ``h``. Returns
-    (h, aux, the P layers' caches)."""
+            positions: torch.Tensor, cfg: ModelConfig, causal: bool,
+            dense: bool = False, tracker=None):
+    """One repetition of the pattern: positions 0..P-1 on ``h`` (``dense``:
+    the leading dense layers, each at position 0). Returns (h, aux, the
+    layers' caches)."""
     caches = []
     for i, p in enumerate(layer):
         h = constrain_batch_leading(h)      # residual-stream anchor
-        h, cache, a = layer_forward(p, h, positions, cfg, i, causal=causal)
+        h, cache, a = layer_forward(p, h, positions, cfg, 0 if dense else i,
+                                    causal=causal, dense=dense,
+                                    tracker=tracker)
         caches.append(cache)
         aux = aux + a
     return h, aux, caches
 
 
-def _period_remat(layer, h, aux, positions, cfg, causal):
-    return _period(layer, h, aux, positions, cfg, causal)[:2]
+def _period_remat(layer, h, aux, positions, cfg, causal, dense=False):
+    return _period(layer, h, aux, positions, cfg, causal, dense)[:2]
 
 
 def backbone_forward(params, h: torch.Tensor, positions: torch.Tensor,
                      cfg: ModelConfig, *, causal: bool = True,
-                     remat: bool = False
+                     remat: bool = False, tracker=None
                      ) -> Tuple[torch.Tensor, Optional[Tuple], torch.Tensor]:
-    """Run the pattern stack. h: (B, S, d). Returns (h, caches, aux):
-    caches per pattern position, each stacked over the repetitions (an
-    ``AttnCache`` of (reps, B, S, ...) tensors or a recurrent state), the
+    """Run the leading dense layers, then the pattern stack. h: (B, S, d).
+    Returns (h, caches, aux): caches per pattern position, each stacked
+    over the repetitions (an ``AttnCache`` of (reps, B, S, ...) tensors or
+    a recurrent state), then the leading layers' stacked the same, the
     layout of :func:`init_cache`.
 
     ``remat=True`` (training) runs each repetition of the period under
@@ -324,15 +395,26 @@ def backbone_forward(params, h: torch.Tensor, positions: torch.Tensor,
     backward pass, so training keeps O(n_layers / P) boundary states, and
     no caches are kept (``caches`` is None)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    lead = _lead_layers(params, cfg)
+    lead_caches: List = []
+    if lead and remat:
+        h, aux = checkpoint(_period_remat, lead, h, aux, positions, cfg,
+                            causal, True, use_reentrant=False)
+    elif lead:
+        h, aux, lead_caches = _period(lead, h, aux, positions, cfg, causal,
+                                      True, tracker)
     per_pos: List[List] = [[] for _ in range(combined_period(cfg))]
     for layer in _layers(params, cfg):
         if remat:
             h, aux = checkpoint(_period_remat, layer, h, aux, positions, cfg,
                                 causal, use_reentrant=False)
             continue
-        h, aux, caches = _period(layer, h, aux, positions, cfg, causal)
+        h, aux, caches = _period(layer, h, aux, positions, cfg, causal,
+                                 tracker=tracker)
         for i, cache in enumerate(caches):
             per_pos[i].append(cache)
+    if lead_caches:
+        per_pos.append(lead_caches)
     caches = None if remat else tuple(_stack_caches(cs) for cs in per_pos)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, caches, aux
@@ -443,27 +525,31 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device=None) -> Tuple:
-    """Zero caches per pattern position, stacked over repetitions, on
-    ``device`` (the card unless ``device="cpu"``): attention caches of
-    (reps, B, max_seq, ...) bf16 slots (MLA's latent and rope key),
-    recurrent states O(1) in the sequence (the stabilisers at -1e30).
-    Shapes are those prefill returns."""
+    """Zero caches per pattern position, stacked over repetitions, then
+    the leading dense layers' (where the config has them), on ``device``
+    (the card unless ``device="cpu"``): attention caches of (reps, B,
+    max_seq, ...) bf16 slots (MLA's latent and rope key), recurrent states
+    O(1) in the sequence (the stabilisers at -1e30). Shapes are those
+    prefill returns."""
     device = resolve_device(device)
     P = combined_period(cfg)
-    reps = cfg.n_layers // P
     hd = cfg.resolved_head_dim
     f32 = torch.float32
-
-    def zeros(*shape, dtype=PARAM_DTYPE):
-        return torch.zeros((reps, batch) + shape, dtype=dtype, device=device)
-
-    def stabiliser(*shape):
-        return torch.full((reps, batch) + shape, xlstm_mod.M_INIT,
-                          dtype=f32, device=device)
+    kinds = cache_kinds(cfg)
+    layers = [cfg.stacked_layers // P] * P + [cfg.first_dense] * (
+        len(kinds) - P)
 
     caches = []
-    for i in range(P):
-        kind = position_kind(cfg, i)
+    for kind, reps in zip(kinds, layers):
+
+        def zeros(*shape, dtype=PARAM_DTYPE):
+            return torch.zeros((reps, batch) + shape, dtype=dtype,
+                               device=device)
+
+        def stabiliser(*shape):
+            return torch.full((reps, batch) + shape, xlstm_mod.M_INIT,
+                              dtype=f32, device=device)
+
         if kind == "attn":
             if cfg.mla is not None:
                 c = attn.AttnCache(zeros(max_seq, cfg.mla.kv_rank),
@@ -493,7 +579,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 def decode_step(params, tokens: torch.Tensor, caches, cache_pos,
                 cfg: ModelConfig, *, seq_axis: Optional[str] = None,
-                logits_mode: str = "full"):
+                logits_mode: str = "full", tracker=None):
     """One decoding step. tokens: (B,) ids; cache_pos: the write index (an
     int or a 0-d tensor; a host int with ``seq_axis``, the mesh dimension
     DTensor attention caches shard their sequence on).
@@ -503,7 +589,8 @@ def decode_step(params, tokens: torch.Tensor, caches, cache_pos,
     (B, d) (the LSH-decode head consumes hidden states). Every cache is
     written in place (recurrent states copied into their stacked tensors)
     and ``caches`` is returned. The encoder-decoder's caches are
-    :func:`encdec.init_cache`'s dict.
+    :func:`encdec.init_cache`'s dict. ``tracker``: the layers' spans and
+    routing counters (module docstring), or None.
     """
     if logits_mode not in ("full", "none"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
@@ -513,15 +600,19 @@ def decode_step(params, tokens: torch.Tensor, caches, cache_pos,
     P = combined_period(cfg)
     h = _embed(params, tokens, cfg)
     cache_layers = [_cache_layers(c) for c in caches]
-    for r, layer in enumerate(_layers(params, cfg)):
-        for i in range(P):
-            view = cache_layers[i][r]
-            h = constrain_batch_leading(h)  # residual-stream anchor
-            h, new, _ = layer_decode(layer[i], h, view, cache_pos, cfg, i,
-                                     seq_axis=seq_axis)
-            for dst, src in zip(view, new):
-                if src is not dst:
-                    dst.copy_(src)
+    steps = [(p, cache_layers[P][j], 0, True)
+             for j, p in enumerate(_lead_layers(params, cfg))]
+    steps += [(layer[i], cache_layers[i][r], i, False)
+              for r, layer in enumerate(_layers(params, cfg))
+              for i in range(P)]
+    for p, view, i, dense in steps:
+        h = constrain_batch_leading(h)      # residual-stream anchor
+        h, new, _ = layer_decode(p, h, view, cache_pos, cfg, i,
+                                 seq_axis=seq_axis, dense=dense,
+                                 tracker=tracker)
+        for dst, src in zip(view, new):
+            if src is not dst:
+                dst.copy_(src)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if logits_mode == "none":
         return h, caches
@@ -538,8 +629,8 @@ def extend_cache(cfg: ModelConfig, caches: Tuple, max_seq: int) -> Tuple:
     them; any rank (GQA's K/V are 5-D, MLA's latent and rope key 4-D).
     Recurrent caches are O(1) and pass through unchanged."""
     out = []
-    for i, c in enumerate(caches):
-        if position_kind(cfg, i) == "attn":
+    for kind, c in zip(cache_kinds(cfg), caches):
+        if kind == "attn":
             pad = max_seq - c.k.shape[2]
             out.append(attn.AttnCache(*(
                 torch.nn.functional.pad(t, (0, 0) * (t.ndim - 3) + (0, pad))
@@ -549,8 +640,25 @@ def extend_cache(cfg: ModelConfig, caches: Tuple, max_seq: int) -> Tuple:
     return tuple(out)
 
 
+def prefill_hidden(params, tokens: torch.Tensor, cfg: ModelConfig,
+                   patches: Optional[torch.Tensor] = None, *, tracker=None
+                   ) -> Tuple[torch.Tensor, Tuple]:
+    """Full-sequence forward returning (final hidden (B, S', d), caches):
+    every position's final-normed hidden state (S' = S, or num_patches + S
+    with ``patches``). :func:`prefill` keeps the last."""
+    B, S = tokens.shape
+    h = _embed(params, tokens, cfg)
+    positions = torch.arange(S, device=tokens.device)
+    if cfg.num_patches and patches is not None:
+        h = torch.cat([patches.to(h.dtype) @ params["patch_proj"], h], dim=1)
+        positions = torch.arange(cfg.num_patches + S, device=tokens.device)
+    h, caches, _ = backbone_forward(params, h, positions, cfg,
+                                    tracker=tracker)
+    return h, caches
+
+
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
-            patches: Optional[torch.Tensor] = None
+            patches: Optional[torch.Tensor] = None, *, tracker=None
             ) -> Tuple[torch.Tensor, Tuple]:
     """Full-sequence forward returning (last hidden (B, d), caches).
 
@@ -559,11 +667,5 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     num_patches + S - 1). Attention caches come back (reps, B, S, ...),
     matching init_cache's layout so a decode loop can continue from them.
     """
-    B, S = tokens.shape
-    h = _embed(params, tokens, cfg)
-    positions = torch.arange(S, device=tokens.device)
-    if cfg.num_patches and patches is not None:
-        h = torch.cat([patches.to(h.dtype) @ params["patch_proj"], h], dim=1)
-        positions = torch.arange(cfg.num_patches + S, device=tokens.device)
-    h, caches, _ = backbone_forward(params, h, positions, cfg)
+    h, caches = prefill_hidden(params, tokens, cfg, patches, tracker=tracker)
     return h[:, -1], caches

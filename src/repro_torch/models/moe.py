@@ -14,6 +14,20 @@ tensors cast to the activations' dtype where the reference casts them.
 
 The layer also returns the Switch/GShard load-balancing loss
 ``E * sum_e f_e * p_e``.
+
+The port also serves DeepSeek-V2's layer (``configs.base.MoEConfig``):
+gates left unrenormalised (``norm_topk=False``), a shared expert of its
+own width (``shared_d_ff``), and dropless routing (``capacity_factor=None``):
+no capacity, every (token, k) slot computed by a sort-by-expert dispatch
+(each expert's slots one segment, one grouped product a weight,
+``torch._grouped_mm``) and combined by the gates in f32, in a fixed order
+(no atomics: the same inputs give the same bits). With a tracker
+(:func:`moe_forward`'s ``tracker``) a layer counts its routing:
+``repro.model.moe.routed_tokens`` and ``dropped_tokens`` (slots kept and
+dropped), ``touched_experts`` (experts given a slot) and the gauge
+``max_expert_tokens`` (the busiest expert's slots); untracked it counts
+nothing and never reads the device. Captured in a CUDA graph, the counts
+are read after each replay (``obs.trace.DeviceSpans``).
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init
+from repro_torch.obs.trace import record_later
 
 
 def moe_init(generator: torch.Generator, cfg: ModelConfig,
@@ -34,6 +49,7 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig,
     m = cfg.moe
     d, E = cfg.d_model, m.num_experts
     d_ff = m.d_ff or cfg.d_ff
+    shared = m.shared_d_ff or d_ff
     p = {
         "router": dense_init(generator, stack + (d, E), dtype=torch.float32),
         "w_gate": dense_init(generator, stack + (E, d, d_ff)),
@@ -41,9 +57,9 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig,
         "w_down": dense_init(generator, stack + (E, d_ff, d)),
     }
     if m.shared_expert:
-        p["s_gate"] = dense_init(generator, stack + (d, d_ff))
-        p["s_up"] = dense_init(generator, stack + (d, d_ff))
-        p["s_down"] = dense_init(generator, stack + (d_ff, d))
+        p["s_gate"] = dense_init(generator, stack + (d, shared))
+        p["s_up"] = dense_init(generator, stack + (d, shared))
+        p["s_down"] = dense_init(generator, stack + (shared, d))
     return p
 
 
@@ -55,13 +71,13 @@ def group_capacity(group_size: int, num_experts: int, top_k: int,
 
 def route(p, x: torch.Tensor, cfg: ModelConfig):
     """The router's decisions for x (B, S, d): (probs (B, S, E) f32,
-    normalized gates (B, S, K) f32 with dropped slots zeroed, gate_idx
-    (B, S, K) int64, its one-hot (B, S, K, E) f32, capacity ranks
-    (B, S, K) int64, C)."""
+    gates (B, S, K) f32 (normalized unless ``norm_topk`` is off) with
+    dropped slots zeroed, gate_idx (B, S, K) int64, its one-hot (B, S, K,
+    E) f32, capacity ranks (B, S, K) int64, C). Dropless routing has no
+    capacity: ranks and C are None."""
     m = cfg.moe
     B, S, _ = x.shape
     E, K = m.num_experts, m.top_k
-    C = group_capacity(S, E, K, m.capacity_factor)
     logits = x.to(torch.float32) @ p["router"]
     probs = torch.softmax(logits, dim=-1)                  # (B, S, E)
     # a stable descending sort: ties go to the lower expert id, as
@@ -69,12 +85,16 @@ def route(p, x: torch.Tensor, cfg: ModelConfig):
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
                                      stable=True)
     gate_vals, gate_idx = gate_vals[..., :K], gate_idx[..., :K]
-    gate_vals = gate_vals / torch.clamp_min(
-        torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
+    if m.norm_topk:
+        gate_vals = gate_vals / torch.clamp_min(
+            torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
+    onehot = torch.nn.functional.one_hot(gate_idx, E).to(torch.float32)
+    if m.dropless:
+        return probs, gate_vals, gate_idx, onehot, None, None
+    C = group_capacity(S, E, K, m.capacity_factor)
     # position of each (token, k) within its expert's capacity buffer:
     # the k slots flattened in token order, so cumsum ranks earlier
     # tokens first
-    onehot = torch.nn.functional.one_hot(gate_idx, E).to(torch.float32)
     flat = onehot.reshape(B, S * K, E)
     rank = torch.cumsum(flat, dim=1) - flat
     rank = torch.sum(rank * flat, dim=-1).reshape(B, S, K).long()
@@ -105,6 +125,61 @@ def _routed(p, x: torch.Tensor, gate_vals, onehot, rank, C: int
     return torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), ye)
 
 
+def _routed_dropless(p, x: torch.Tensor, gate_vals: torch.Tensor,
+                     gate_idx: torch.Tensor, onehot: torch.Tensor
+                     ) -> torch.Tensor:
+    """The routed experts' output (B, S, d) with no capacity: the (token,
+    k) slots sorted by expert (stable, so each segment keeps token order),
+    each expert's SwiGLU over its segment as one grouped product a
+    weight, and every slot's output times its f32 gate put back in its
+    place and summed over k in order. The segments' ends come from the
+    one-hot's column sums (exact in f32 below 2^24 slots), which, unlike
+    ``bincount``, never wait for the device."""
+    B, S, d = x.shape
+    K = gate_idx.shape[-1]
+    flat = gate_idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = onehot.reshape(-1, onehot.shape[-1]).sum(0)
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    xs = x.reshape(-1, d)[order // K]                      # (T K, d)
+    g = torch.nn.functional.silu(torch._grouped_mm(xs, p["w_gate"],
+                                                   offs=ends))
+    h = g * torch._grouped_mm(xs, p["w_up"], offs=ends)
+    y = torch._grouped_mm(h, p["w_down"], offs=ends).to(torch.float32)
+    placed = torch.empty_like(y)
+    placed[order] = y * gate_vals.reshape(-1)[order, None]
+    return placed.view(B, S, K, d).sum(2).to(x.dtype)
+
+
+def _shared(p, x: torch.Tensor) -> torch.Tensor:
+    """The shared expert's SwiGLU, for every token."""
+    sg = torch.nn.functional.silu(x @ p["s_gate"])
+    return (sg * (x @ p["s_up"])) @ p["s_down"]
+
+
+def _count_routing(tracker, onehot: torch.Tensor, rank, C) -> None:
+    """A layer's routing counters: its slots kept per expert, read when
+    the tracker records them (``obs.trace.record_later``: at once, or
+    after a captured graph's replay)."""
+    kept = onehot if rank is None else onehot * (rank < C).to(
+        onehot.dtype)[..., None]
+    per_expert = kept.sum(dim=tuple(range(kept.dim() - 1)))      # (E,)
+    record_later(tracker, _record_routing, per_expert,
+                 onehot[..., 0].numel())
+
+
+def _record_routing(tracker, per_expert: torch.Tensor, slots: int) -> None:
+    """The counters of one layer's (E,) kept slots (one read of the
+    device)."""
+    routed, busiest, touched = torch.stack(
+        [per_expert.sum(), per_expert.max(),
+         (per_expert > 0).sum().to(per_expert.dtype)]).tolist()
+    tracker.count("repro.model.moe.routed_tokens", routed)
+    tracker.count("repro.model.moe.dropped_tokens", slots - routed)
+    tracker.count("repro.model.moe.touched_experts", touched)
+    tracker.gauge("repro.model.moe.max_expert_tokens", busiest)
+
+
 def _balance(probs, onehot, E: int, K: int):
     """(frac of tokens, mean prob) per expert over the (B, S) tokens."""
     frac = torch.mean(onehot[..., 0, :] if K == 1 else onehot.sum(2),
@@ -112,26 +187,36 @@ def _balance(probs, onehot, E: int, K: int):
     return frac, torch.mean(probs, dim=(0, 1))
 
 
-def moe_forward(p, x: torch.Tensor, cfg: ModelConfig
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, tracker=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss ()).
 
     Decode calls reshape their (B, d) batch to (G, B / G, d) groups. On a
     mesh (x a DTensor) the routed experts run on local shards
-    (:func:`_moe_on_mesh`)."""
+    (:func:`_moe_on_mesh`; not for dropless routing). ``tracker`` (a
+    :class:`repro_torch.obs.Tracker` or None) takes the layer's routing
+    counters."""
     from torch.distributed.tensor import DTensor
-    if isinstance(x, DTensor):
-        return _moe_on_mesh(p, x, cfg)
     m = cfg.moe
+    if isinstance(x, DTensor):
+        if m.dropless:
+            raise NotImplementedError(
+                "dropless routing has no mesh path: its segments are "
+                "sized by the data")
+        return _moe_on_mesh(p, x, cfg)
     E, K = m.num_experts, m.top_k
-    probs, gate_vals, _, onehot, rank, C = route(p, x, cfg)
-    out = _routed(p, x, gate_vals, onehot, rank, C)
+    probs, gate_vals, gate_idx, onehot, rank, C = route(p, x, cfg)
+    if m.dropless:
+        out = _routed_dropless(p, x, gate_vals, gate_idx, onehot)
+    else:
+        out = _routed(p, x, gate_vals, onehot, rank, C)
     if m.shared_expert:
-        sg = torch.nn.functional.silu(x @ p["s_gate"])
-        out = out + (sg * (x @ p["s_up"])) @ p["s_down"]
+        out = out + _shared(p, x)
     # Switch-style load-balance loss: E * sum_e (frac tokens) * (mean prob)
     frac, mean_p = _balance(probs, onehot, E, K)
     aux = E * torch.sum(frac * mean_p)
+    if tracker is not None:
+        _count_routing(tracker, onehot, rank, C)
     return out, aux
 
 
@@ -198,8 +283,7 @@ def _moe_on_mesh(p, x, cfg: ModelConfig):
         run_check=False, shape=x.shape, stride=x.stride()
     ).redistribute(mesh, keep)
     if m.shared_expert:
-        sg = torch.nn.functional.silu(x @ p["s_gate"])
-        out = out + (sg * (x @ p["s_up"])) @ p["s_down"]
+        out = out + _shared(p, x)
     avg = tuple(Partial("avg") if pl == Shard(0) else Replicate()
                 for pl in keep)
     frac, mean_p = (DTensor.from_local(t, mesh, avg, run_check=False)

@@ -41,6 +41,14 @@ it. Tracked, the range holds the span's clock and sync; untracked,
 that neither synchronises nor records. With the profiler off the cost is
 one flag read a site: ``record_function`` is never entered (it goes
 through the dispatcher, ~11 us a call even when nothing records).
+
+Captured code (the port's own): a CUDA graph replays its kernels with no
+host code between them, so a span inside it cannot read a host clock.
+:class:`DeviceSpans` stands in for the tracker while the graph is
+captured: its span sites are timing events inside the graph, and its
+deferred records (:func:`record_later`) read the replay's tensors; after
+each replay it hands the tracker the spans, timed on the device, and the
+records.
 """
 
 from __future__ import annotations
@@ -161,17 +169,29 @@ class Tracer:
             self._stack.pop()
         if failed:
             return
+        self._emit_span(span.name, span.path, span.depth, span.t_start,
+                        span.duration, span.attrs)
+
+    def record(self, name: str, t_start: float, duration: float) -> None:
+        """Emit a span timed elsewhere (``t_start`` on the tracker's
+        clock, ``duration`` seconds), as a child of the open spans."""
+        path = "/".join([s.name for s in self._stack] + [name])
+        self._emit_span(name, path, len(self._stack), t_start, duration,
+                        None)
+
+    def _emit_span(self, name: str, path: str, depth: int, t_start: float,
+                   duration: float, attrs: Optional[Dict[str, Any]]
+                   ) -> None:
         tr = self.tracker
-        h = tr.hists.get(span.name)
+        h = tr.hists.get(name)
         if h is None:
             from repro_torch.obs.tracker import LogHistogram
-            h = tr.hists[span.name] = LogHistogram()
-        h.record(span.duration)
-        rec = {"type": "span", "name": span.name, "path": span.path,
-               "depth": span.depth, "t0": span.t_start - tr._t0,
-               "dur_s": span.duration}
-        if span.attrs:
-            rec["attrs"] = dict(span.attrs)
+            h = tr.hists[name] = LogHistogram()
+        h.record(duration)
+        rec = {"type": "span", "name": name, "path": path, "depth": depth,
+               "t0": t_start - tr._t0, "dur_s": duration}
+        if attrs:
+            rec["attrs"] = dict(attrs)
         tr._emit(rec)
 
 
@@ -229,3 +249,74 @@ def costed_span(tracker, name: str, cost_fn, *args):
     if tracker is None:
         return _RangeSpan(name) if _profiler_enabled() else _NULL_SPAN
     return tracker.span(name, attrs=cost_fn(*args))
+
+
+class DeviceSpans:
+    """Span sites of code captured as a CUDA graph, timed on the device:
+    no host clock sees where a stage of a replay starts or ends.
+
+    Handed to the captured code in place of a tracker, each span site
+    records a timing event into the graph at its start and at its end
+    (``external`` events: nodes of the graph, recorded at every replay),
+    and each :func:`record_later` site keeps its arguments, whose tensors
+    the graph rewrites at every replay. Once a replay has finished,
+    :meth:`emit` gives a tracker each span (its duration the events'
+    elapsed device time, its start the replay's launch plus the device
+    time from the graph's first event) and runs each deferred record on
+    the replay's values, in the order of capture. Nothing inside the
+    graph waits for the host."""
+
+    def __init__(self):
+        self._first = None
+        self._sites: List[tuple] = []
+
+    def _event(self):
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        if self._first is None:
+            self._first = event
+        return event
+
+    def span(self, name: str, *, sync: Any = None, attrs=None
+             ) -> "_DeviceSpan":
+        return _DeviceSpan(self, name)
+
+    def emit(self, tracker, launched: float) -> None:
+        """Hand ``tracker`` the finished replay's spans and deferred
+        records; ``launched``: the replay's launch on its clock."""
+        for kind, name_or_fn, *rest in self._sites:
+            if kind == "span":
+                start, end = rest
+                tracker.tracer.record(
+                    name_or_fn,
+                    launched + 1e-3 * self._first.elapsed_time(start),
+                    1e-3 * start.elapsed_time(end))
+            else:
+                name_or_fn(tracker, *rest[0])
+
+
+class _DeviceSpan(_NullSpan):
+    """One span site of a capture: a timing event at each end."""
+
+    def __init__(self, spans: DeviceSpans, name: str):
+        self._spans, self._name = spans, name
+
+    def __enter__(self):
+        self._start = self._spans._event()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            self._spans._sites.append(("span", self._name, self._start,
+                                       self._spans._event()))
+        return None
+
+
+def record_later(tracker, fn, *args) -> None:
+    """``fn(tracker, *args)`` for a tracker; in a capture (``tracker`` a
+    :class:`DeviceSpans`) after each replay, on the values the replay
+    leaves in ``args``' tensors. ``fn`` reads the device."""
+    if isinstance(tracker, DeviceSpans):
+        tracker._sites.append(("later", fn, args))
+    else:
+        fn(tracker, *args)

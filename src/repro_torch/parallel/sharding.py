@@ -168,7 +168,15 @@ def param_specs(params: PyTree, cfg: ModelConfig, *,
 
     ``serve_stationary``: weights never move at decode time —
     embed/unembed shard on vocab only, ``w_o`` on its output d_model, and
-    MoE expert stacks shard 2D (expert -> model, d_ff -> data)."""
+    MoE expert stacks shard 2D (expert -> model, d_ff -> data).
+
+    A config with leading dense layers (``cfg.first_dense``) has no mesh
+    layout: its ``lead`` stack would take the MoE stacks' rules by name."""
+    if cfg.first_dense:
+        raise NotImplementedError(
+            f"{cfg.name}: leading dense layers (first_dense="
+            f"{cfg.first_dense}) have no mesh layout; serve it without a "
+            f"mesh")
 
     def spec(keys, leaf) -> Spec:
         name = keys[-1]

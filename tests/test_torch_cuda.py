@@ -865,3 +865,59 @@ def test_lint_kernels_and_contracts_exit_0_on_the_card(cuda_device, capsys):
     assert "contracts: 0 finding(s) on cuda" in out
     assert "kernelcheck: skipped" not in out
     assert "0 new finding(s)" in out
+
+
+@pytest.mark.cuda
+def test_deepseek_step_graph_equals_the_eager_step(cuda_device):
+    """DeepSeek-V2-Lite at a small size on the card: the fused-head
+    server, whose step is a replayed CUDA graph, gives the eager
+    ``lm.decode_step``'s hidden states and the head's answers on them step
+    by step (the same tokens fed to both), and writes the same caches. A
+    tracked step replays the same graph: every layer's span, timed on the
+    device inside it, and the routing counters. bf16 throughout: the same
+    kernels in the same order, so within one bf16 rounding (1e-2)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, lm_head
+    from repro_torch.obs import Tracker
+    from repro_torch.obs.sinks import RingBufferSink
+
+    cfg = get_config("deepseek_v2_lite").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=8, top_k=3))
+    assert lm.decode_capturable(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = lm.init_params(gen, cfg, device=cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (4, 30), generator=gen,
+                           device=cuda_device)
+    vidx = lm_head.build_vocab_index(lm._unembed_matrix(params, cfg), gen,
+                                     code_len=64, num_ranges=8)
+    server = serve.BatchedServer(
+        cfg, params, max_seq=32, batch=4, lsh_decode=True, engine="fused",
+        vocab_index=vidx, num_probe=cfg.padded_vocab, device=cuda_device)
+    _, caches = server.prefill(tokens[:, :24])
+    eager = tuple(type(c)(*(t.clone() for t in c)) for c in caches)
+    sink = RingBufferSink()
+    for t in range(24, 30):
+        if t == 29:
+            server.tracker = Tracker([sink])
+        out = server.step(tokens[:, t], caches, t, 4)
+        hidden, _ = lm.decode_step(params, tokens[:, t], eager, t, cfg,
+                                   logits_mode="none")
+        torch.testing.assert_close(out.hidden, hidden, rtol=1e-2, atol=1e-2)
+        vals, _ = server.head_topk(hidden, 4)
+        torch.testing.assert_close(out.vals, vals, rtol=1e-2, atol=1e-2)
+    for a, b in zip(eager, caches):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(y, x, rtol=1e-2, atol=1e-2)
+    spans = sink.query(type="span")
+    for name, n in (("repro.model.attn", cfg.n_layers),
+                    ("repro.model.moe", cfg.n_layers - cfg.first_dense)):
+        durs = [r["dur_s"] for r in spans if r["name"] == name]
+        assert len(durs) == n and all(d > 0 for d in durs)
+    tr = server.tracker
+    assert tr.counters["repro.model.moe.dropped_tokens"] == 0
+    assert tr.counters["repro.model.moe.routed_tokens"] == (
+        4 * 3 * (cfg.n_layers - cfg.first_dense))

@@ -57,12 +57,30 @@ def carried(request):
     return request.param, jcfg, cfg, jp, pp
 
 
+def _assert_reference_fields(port, ref):
+    """Every field of the reference's dataclass equals the port's (nested
+    dataclasses field by field), and every field the port adds (for the
+    configurations only the port serves) sits at its default."""
+    ref_names = {f.name for f in dataclasses.fields(ref)}
+    port_fields = dataclasses.fields(port)
+    assert ref_names <= {f.name for f in port_fields}
+    for f in port_fields:
+        value = getattr(port, f.name)
+        if f.name not in ref_names:
+            assert value == f.default, f.name
+        elif dataclasses.is_dataclass(value):
+            want = getattr(ref, f.name)
+            assert dataclasses.is_dataclass(want), f.name
+            _assert_reference_fields(value, want)
+        else:
+            assert value == getattr(ref, f.name), f.name
+
+
 @pytest.mark.parametrize("arch", jbase.ARCH_IDS)
 def test_configs_equal_the_reference(arch):
     jcfg, cfg = jbase.get_config(arch), base.get_config(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
-        jcfg.reduced())
+    _assert_reference_fields(cfg, jcfg)
+    _assert_reference_fields(cfg.reduced(), jcfg.reduced())
     assert cfg.padded_vocab == jcfg.padded_vocab
     assert base.shape_cells(arch) == jbase.shape_cells(arch)
 

@@ -240,6 +240,28 @@ def test_span_nesting_paths_and_histograms():
     assert outer["dur_s"] >= inner["dur_s"] >= 0.0
 
 
+def test_recorded_span_nests_under_open_spans():
+    """A span timed elsewhere (``Tracer.record``: a graph's device time)
+    lands as a child of the open spans, in the histogram of its name."""
+    tr = Tracker([RingBufferSink()])
+    with tr.span("outer"):
+        tr.tracer.record("inner", tr.clock(), 0.25)
+    rec = tr.sinks[0].query(type="span", name="inner")[0]
+    assert rec["path"] == "outer/inner" and rec["depth"] == 1
+    assert rec["dur_s"] == 0.25 and tr.hists["inner"].count == 1
+    assert tr.tracer._stack == []
+
+
+def test_record_later_runs_at_once_for_a_tracker():
+    """Outside a capture a deferred record is made at once, with its
+    arguments as given."""
+    from repro_torch.obs.trace import record_later
+    tr = Tracker()
+    record_later(tr, lambda t, n, x: t.count(n, float(x.sum())), "c",
+                 torch.ones(3))
+    assert tr.counters["c"] == 3.0
+
+
 def test_span_sync_returns_value_unchanged():
     tr = Tracker()
     x = torch.arange(8)
