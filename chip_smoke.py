@@ -76,7 +76,14 @@ Phases, each fatal on failure:
    with the launch counters zeroed before, ``planned_runs`` must launch
    once a batch, and a ``yardstick:`` line times the parent's composition
    (32 masked passes, the take, the exclusive cumsum, caps copied from
-   the host).
+   the host). The port's ``latent_attend`` (MLA's absorbed decode
+   attention, plain jnp in the reference) is launched by ``mla_decode`` of
+   one DeepSeek-V2-Lite layer (64 sequences, 9,216 bf16 cache slots) at
+   positions 8,191 and 9,215 and of one MiniCPM3 layer (8 sequences) at
+   9,215, once a call, and has a row at each: every (sequence, head) row
+   within ``LATENT_RTOL`` of the plain version's relative to its norm,
+   bound by the live cache's bytes (its products over the bf16 tensor
+   cores' 989 TFLOP/s), device time of both its kernels.
 
 5. The rest of the spec API at the same N and d. The launch counters are
    zeroed just before the path and read right after its last call,
@@ -186,8 +193,9 @@ Phases, each fatal on failure:
    num_probe = V every LSH head's tokens equal the exact head's; for
    minicpm3, xlstm and internvl2 (neither MoE, whose decode capacity is
    per decode group, nor encoder-decoder) a teacher-forced decode over
-   the exact tokens, on f32 copies of the weights, equals a full forward
-   at the same positions within atol and rtol 5e-2
+   the exact tokens, on f32 copies of the weights (MLA's decode attention
+   there the plain version: its kernel takes a bf16 cache only), equals a
+   full forward at the same positions within atol and rtol 5e-2
    (``tests/test_models.py``'s bound; the bf16 run's largest difference
    is printed: its roundings compound through the random-weight layers);
    every hidden state seen is finite. Printed: each model's parameter count, prefill,
@@ -313,6 +321,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -341,6 +350,13 @@ SEED = 0
 CELL_ITEMS = 136736       # the benchmark cell's catalogue (Yahoo!Music R2)
 CELL_DIM = 300
 CELL_BATCHES = 8          # budgeted batches served at the cell's shape
+# the decode cell's latent attention: 64 sequences over 9,216 cache slots
+# (MiniCPM3's widths at 8), and the kernel's tolerance against the plain
+# version, per (sequence, head) row relative to its norm (tests/
+# test_torch_cuda.py: q_lat, q_rope and P enter as hi + lo bf16 pairs)
+LATENT_BATCH, LATENT_MINICPM3_BATCH, LATENT_SLOTS = 64, 8, 9216
+LATENT_RTOL = 5e-5
+PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s (data sheet)
 SLICE1_KERNELS = ("hash_encode", "hamming_scan", "bucket_gather",
                   "fused_query", "fused_query_int8", "planned_runs")
 STREAM_KERNELS = ("hash_encode", "bucket_match", "bucket_gather",
@@ -927,6 +943,97 @@ def served_cell_phase(ops, dev, card):
           f"{launches['planned_runs']} in {CELL_BATCHES} batches [{card}]")
     return launches, shapes, {"planned_runs_cell": planned_runs_case(
         order, eng.buckets, budgets, dev, path="cell")}
+
+
+def latent_case(cfg, batch, slots, at, dev, seed):
+    """The absorbed MLA decode attention's row at ``cfg``'s widths: seeded
+    f32 queries over a seeded bf16 cache of ``slots`` slots, live to
+    ``at``, held to the plain version per (sequence, head) row within
+    ``LATENT_RTOL``, bound by the live cache's bytes (the products at the
+    tensor cores' bf16 rate)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import mla_softmax_scale
+    m, H = cfg.mla, cfg.n_heads
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q_lat = torch.randn((batch, H, m.kv_rank), generator=g, device=dev)
+    q_rope = torch.randn((batch, H, m.rope_dim), generator=g,
+                         device=dev).to(torch.bfloat16)
+    c_kv = torch.randn((batch, slots, m.kv_rank), generator=g,
+                       device=dev).to(torch.bfloat16)
+    k_rope = torch.randn((batch, slots, m.rope_dim), generator=g,
+                         device=dev).to(torch.bfloat16)
+    pos = torch.tensor([at], device=dev)
+    live = batch * (at + 1)
+
+    def check(got, want):
+        err = float(((got - want).norm(dim=-1)
+                     / want.norm(dim=-1)).max())
+        if not err <= LATENT_RTOL:
+            fail(f"latent_attend at {tuple(c_kv.shape)}, pos {at}: a row "
+                 f"differs from the plain version's by {err:.3e} of its "
+                 f"norm (limit {LATENT_RTOL})")
+        return err, 0
+    return dict(
+        call=lambda impl: ops.latent_attend(q_lat, q_rope, c_kv, k_rope, pos,
+                                            mla_softmax_scale(cfg),
+                                            impl=impl),
+        bytes=2 * live * (m.kv_rank + m.rope_dim),
+        ops=2 * live * H * (2 * m.kv_rank + m.rope_dim),
+        op_rate=PEAK_BF16, op_note="bf16 tensor cores", check=check,
+        kernel="latent_attend", path="latent",
+        device=("latent_attn_kernel", "latent_merge_kernel"),
+        source="src/repro_torch/kernels/csrc/latent_attn.cu",
+        replaces="none: plain jnp in src/repro/models/attention.py "
+                 "(mla_decode)")
+
+
+def latent_phase(ops, dev, card):
+    """Phase 4's latent-attention rows: ``mla_decode`` of one
+    DeepSeek-V2-Lite layer (64 sequences, a 9,216-slot bf16 cache) at
+    positions 8,191 and 9,215, and of one MiniCPM3 layer (8 sequences) at
+    9,215, between zeroed and read launch counters: ``latent_attend`` must
+    launch once a call. Returns (launches, shapes, cases): the kernel
+    against its plain version at those shapes."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention
+    calls = (("deepseek_v2_lite", LATENT_BATCH, (8191, 9215)),
+             ("minicpm3_4b", LATENT_MINICPM3_BATCH, (LATENT_SLOTS - 1,)))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for arch, batch, positions in calls:
+        cfg = get_config(arch)
+        g = torch.Generator(device=dev).manual_seed(SEED + 7)
+        p = attention.attn_init(g, cfg)
+        cache = attention.AttnCache(*(
+            torch.randn((batch, LATENT_SLOTS, w), generator=g,
+                        device=dev).to(torch.bfloat16)
+            for w in (cfg.mla.kv_rank, cfg.mla.rope_dim)))
+        x = torch.randn((batch, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16)
+        for at in positions:
+            attention.mla_decode(p, x, cache, torch.tensor(at, device=dev),
+                                 cfg)
+        del p, cache
+    torch.cuda.synchronize()
+    launches, shapes = dict(ops.launch_counts), dict(ops.launch_shapes)
+    want = sum(len(positions) for _, _, positions in calls)
+    if launches["latent_attend"] != want:
+        fail(f"latent: latent_attend launched {launches['latent_attend']} "
+             f"times for {want} MLA decodes")
+    print(f"latent: {want} mla_decode calls, launches "
+          f"{ {k: v for k, v in shapes.items() if k[0] == 'latent_attend'} }"
+          f" [{card}]")
+    ds, mc = get_config("deepseek_v2_lite"), get_config("minicpm3_4b")
+    return launches, shapes, {
+        "latent_attend_8191": latent_case(ds, LATENT_BATCH, LATENT_SLOTS,
+                                          8191, dev, SEED + 8),
+        "latent_attend_9215": latent_case(ds, LATENT_BATCH, LATENT_SLOTS,
+                                          9215, dev, SEED + 9),
+        "latent_attend_minicpm3": latent_case(
+            mc, LATENT_MINICPM3_BATCH, LATENT_SLOTS, LATENT_SLOTS - 1, dev,
+            SEED + 10)}
 
 
 def run_cases(name, queries, cum, starts, items_csr, total, kp, dev):
@@ -2113,6 +2220,20 @@ def vocab_cases(label, cfg, vidx, unembed, hidden, engines, dev,
     return cases
 
 
+@contextlib.contextmanager
+def plain_latent_attend(ops):
+    """Every ``ops.latent_attend`` call, ``mla_decode``'s too, asks for the
+    plain version: on the card the op takes only a bf16 cache at the
+    widths its kernel is built for and raises on any other, so an f32
+    check of an MLA model's decode asks for the plain arithmetic itself."""
+    real = ops.latent_attend
+    ops.latent_attend = lambda *args, impl="auto": real(*args, impl="ref")
+    try:
+        yield
+    finally:
+        ops.latent_attend = real
+
+
 def teacher_forced(params, cfg, reqs, toks):
     """prefill -> extend_cache -> decode steps fed ``toks``, and one full
     forward over the prompt and the same tokens. Returns (prefill's last
@@ -2261,7 +2382,8 @@ def serve_one_model(arch, layers, heads, rows, seed, ops, dev, card):
         ops.set_dispatch_tracker(None)
     launches = dict(ops.launch_counts)
     shapes = dict(ops.launch_shapes)
-    want = sorted({k for n in heads for k in MODEL_KERNELS[n]})
+    want = sorted({k for n in heads for k in MODEL_KERNELS[n]}
+                  | ({"latent_attend"} if cfg.mla else set()))
     print(f"launches on the phase-8 {label} path: "
           f"{ {k: launches[k] for k in want} }")
     idle = [op for op in want if launches[op] == 0]
@@ -2320,8 +2442,10 @@ def serve_one_model(arch, layers, heads, rows, seed, ops, dev, card):
             bf16_err = float((h_dec.float() - h_full[:, 1:].float())
                              .abs().max())
             p32 = torch.utils._pytree.tree_map(lambda t: t.float(), params)
-            f0, f_dec, f_full = teacher_forced(p32, cfg, reqs,
-                                               exact[:, :MODEL_STEPS - 1])
+            # an f32 cache: MLA's decode attention as its plain version
+            with plain_latent_attend(ops):
+                f0, f_dec, f_full = teacher_forced(
+                    p32, cfg, reqs, exact[:, :MODEL_STEPS - 1])
             del p32
             err = float((f_dec - f_full[:, 1:]).abs().max())
             ok = torch.allclose(f_dec, f_full[:, 1:], atol=MODEL_TOL,
@@ -3908,7 +4032,8 @@ def main() -> int:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib_ms, "parity": "ok"}
             if "op_rate" in c:
-                row["op_rate"] = "no FMA: each multiply and add alone"
+                row["op_rate"] = c.get("op_note",
+                                       "no FMA: each multiply and add alone")
             if cold_ms is not None:
                 k5_bound(kernel, shape, k_out, cold_ms, path, row)
             if "probe_of" in c:       # a probe shape goes inside its row
@@ -3923,7 +4048,8 @@ def main() -> int:
             lib += "" if ceil_ms is None else f", fill_ {ceil_ms:.4f} ms"
             lib += ("" if not profiled_row else ", device " + (
                 "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"))
-            by = row["bound_by"] + (" (no FMA)" if "op_rate" in c and
+            by = row["bound_by"] + (f" ({c.get('op_note', 'no FMA')})"
+                                     if "op_rate" in c and
                                      row["bound_by"] == "operations" else "")
             print(f"kernel: {name} {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, "
                   f"bound {row['bound_ms']:.4f} ms ({by}), "
@@ -3944,6 +4070,11 @@ def main() -> int:
     paths["cell"] = (cell_launches, cell_shapes)
     compare(cell_cases)
     del cell_cases
+    lat_launches, lat_shapes, lat_cases = latent_phase(ops, dev, smi)
+    paths["latent"] = (lat_launches, lat_shapes)
+    compare(lat_cases)
+    del lat_cases
+    torch.cuda.empty_cache()
 
     # -- 5. ALSH families, adaptive, multi-table, Fig. 2 ----------------------
     alsh_launches, alsh_shapes, alsh_cases = alsh_phase(

@@ -14,7 +14,8 @@ sizes ``ops.launch_shapes`` recorded on a path):
       grid axes within CUDA's limits. On the card, where the build log
       holds ``ptxas -v`` output, every function's registers times its
       threads fit a block's 65,536 registers and its static shared memory
-      is within the annotation's claim.
+      is within the annotation's claim (an op's of the registry, or a port
+      kernel's own: ``ops.PORT_KERNELS`` with an entry in ``ANNOTATIONS``).
   K2  coverage: along every grid axis the blocks times the extent a block
       covers reach the axis's size (a grid-stride walk covers any size).
   K3  shared outputs: a first-stage grid axis that does not index the
@@ -56,7 +57,7 @@ import inspect
 import statistics
 import textwrap
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 from repro_torch.analysis import rules
 from repro_torch.analysis.findings import Finding
@@ -161,13 +162,29 @@ def parse_ptxas(log: str) -> List[Tuple[str, int, int]]:
     return out
 
 
+class _PortOp(NamedTuple):
+    """A port kernel's wrapper and its own annotation (``ops.PORT_KERNELS``
+    with an entry in ``ANNOTATIONS``): no op of the registry, but the
+    owner of its compiled functions."""
+    wrapper: Any
+    annotation: Any
+
+
+def _port_ops() -> List[_PortOp]:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.annotations import ANNOTATIONS
+    return [_PortOp(getattr(ops, name), ANNOTATIONS[name])
+            for name in ops.PORT_KERNELS if name in ANNOTATIONS]
+
+
 def check_ptxas(registry: Dict[str, Any], build_log: Dict[str, str]
                 ) -> List[Finding]:
     """K1 on the compiled functions: registers times the claimed threads
     within a block's registers, static shared memory within the claim,
-    and every compiled kernel claimed by some op."""
+    and every compiled kernel claimed by some op of ``registry`` or a
+    port kernel's own annotation."""
     out = []
-    claims = [(reg, fn) for reg in registry.values()
+    claims = [(reg, fn) for reg in [*registry.values(), *_port_ops()]
               for fn in reg.annotation.static_smem]
     for lib, log in sorted(build_log.items()):
         for mangled, regs, smem in parse_ptxas(log):

@@ -51,6 +51,9 @@ SIGNATURES = {
                   [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _P]),
     # occupancy query, not a launch: blocks per SM at a given k
     "mips_topk_blocks": ("mips_topk", "repro_mips_topk_blocks_per_sm", [_I]),
+    "latent_attend": ("latent_attn", "repro_latent_attend",
+                      [_P] * 8 + [_I] * 5 + [_LL] * 4
+                      + [ctypes.c_float, _I, _P]),
 }
 LIBRARIES = tuple(dict.fromkeys(lib for lib, _, _ in SIGNATURES.values()))
 

@@ -152,4 +152,15 @@ ANNOTATIONS: Dict[str, KernelAnnotation] = {
         pad_contained=True,
         note="chunk blocks write their own partial lists; the merge "
              "kernel reduces them into the query's row"),
+    # the port's own op (ops.latent_attend, no op of the registry): all of
+    # its shared memory is dynamic (~190-200 KB a block, latent_attn.cu)
+    "latent_attend": KernelAnnotation(
+        name="latent_attend", grid_names=("splits", "sequences"),
+        revisit_dims=(0,),
+        static_smem={"latent_attn_kernel": 0, "latent_merge_kernel": 0},
+        max_threads={"latent_attn_kernel": 256, "latent_merge_kernel": 128},
+        pad_contained=True,
+        note="slots past the live position are zero-filled in shared "
+             "memory and scored -inf; the split blocks of one sequence "
+             "write their own (o, max, sum), merged by the second kernel"),
 }

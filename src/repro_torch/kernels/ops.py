@@ -18,10 +18,11 @@ the launch passes (``last_shape[kernel]`` keeps the latest), and raises
 ``RuntimeError`` when the launch is refused; nothing falls back to the
 plain version on a CUDA tensor. Outputs are allocated here and the
 kernels run on the current stream. The port's own kernels
-(``PORT_KERNELS``: ``planned_runs``, the per-range take, which the
-reference computes in plain jnp) count and dispatch the same way but stay
-out of ``OPS``, ``KERNELS`` and ``KERNEL_REGISTRY``, which keep the
-reference's keys.
+(``PORT_KERNELS``: ``planned_runs``, the per-range take, and
+``latent_attend``, MLA's absorbed decode attention, which the reference
+computes in plain jnp) count and dispatch the same way but stay out of
+``OPS``, ``KERNELS`` and ``KERNEL_REGISTRY``, which keep the reference's
+keys.
 
 With a tracker installed (:func:`set_dispatch_tracker`), every wrapper
 call counts ``repro.kernels.dispatch.<op>.<impl>`` (``impl`` resolved to
@@ -51,8 +52,9 @@ OPS = ("hash_encode", "hamming_scan", "bucket_gather", "fused_query",
        "bucket_match", "delta_scan", "mips_topk")
 KERNELS = OPS + ("fused_query_int8",)
 # the port's own kernels, which no Pallas kernel of the reference stands
-# behind (the registry keeps the reference's ops): the per-range take
-PORT_KERNELS = ("planned_runs",)
+# behind (the registry keeps the reference's ops): the per-range take and
+# MLA's absorbed decode attention
+PORT_KERNELS = ("planned_runs", "latent_attend")
 
 # per-kernel launches since the last reset (plain-version calls never
 # count)
@@ -93,6 +95,11 @@ _FUSED_STATIC_SMEM = 4 * (256 + 8 + 4)
 
 # bucket_gather.cu's planned_runs: warps of the one block that walks a row
 PLANNED_RUNS_WARPS = 32
+
+# latent_attn.cu: the most heads each (kv_rank, rope_dim) instantiation
+# takes (m16 tiles of heads), as its repro_latent_attend dispatches; any
+# other cache raises ValueError before a launch
+LATENT_WIDTHS = {(512, 64): 16, (256, 32): 48}
 
 
 def reset_launch_counts() -> None:
@@ -558,6 +565,99 @@ def planned_runs(order: torch.Tensor, bucket_start: torch.Tensor,
     return cum, starts
 
 
+def latent_attend_splits(batch: int, sms: int) -> int:
+    """Blocks a sequence's live slots split over: as many as one wave of
+    one block an SM holds (``batch`` x splits <= ``sms``), at least one."""
+    return max(1, int(sms) // int(batch))
+
+
+def _latent_fits(c_kv: torch.Tensor, k_rope: torch.Tensor,
+                 heads: int) -> bool:
+    """Whether ``latent_attend``'s kernel takes this cache: plain tensors
+    (not DTensors) of bf16, at a (kv_rank, rope_dim) it is instantiated for
+    with at most its heads (``LATENT_WIDTHS``)."""
+    most = LATENT_WIDTHS.get((c_kv.shape[-1], k_rope.shape[-1]), 0)
+    return (type(c_kv) is torch.Tensor and type(k_rope) is torch.Tensor
+            and c_kv.dtype == k_rope.dtype == torch.bfloat16
+            and 1 <= heads <= most)
+
+
+def latent_attend(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                  c_kv: torch.Tensor, k_rope: torch.Tensor,
+                  pos: torch.Tensor, scale: float, *,
+                  impl: str = "auto") -> torch.Tensor:
+    """MLA's absorbed decode attention: the attention-weighted latent
+    o_lat (B, H, r) f32 of ``softmax(scale * (q_lat c_kv^T + q_rope
+    k_rope^T))`` over the cache slots ``0 .. pos``.
+
+    ``q_lat`` (B, H, r) f32; ``q_rope`` (B, H, rho) floating (upcast to
+    f32); ``c_kv`` (B, S, r) and ``k_rope`` (B, S, rho), the cache as
+    stored; ``pos`` a 0-d or (1,) int64 tensor on their device, in [0, S).
+    The kernel reads ``pos`` on the device (a captured CUDA graph replays
+    at any position) and takes a bf16 cache at a (kv_rank, rope_dim) of
+    ``LATENT_WIDTHS`` with rows of unit stride, and 16-byte aligned; the
+    plain version takes any widths and floating dtype."""
+    op = "latent_attend"
+    ts = (q_lat, q_rope, c_kv, k_rope)
+    if any(t.dim() != 3 for t in ts):
+        raise ValueError(f"{op}: q_lat, q_rope, c_kv and k_rope must be "
+                         f"3-D, got {[tuple(t.shape) for t in ts]}")
+    B, H, r = q_lat.shape
+    S, rho = c_kv.shape[1], k_rope.shape[2]
+    _require_nonempty(op, B=B, H=H, r=r, S=S, rho=rho)
+    if (tuple(q_rope.shape) != (B, H, rho) or tuple(c_kv.shape) != (B, S, r)
+            or tuple(k_rope.shape) != (B, S, rho)):
+        raise ValueError(f"{op}: q_rope {tuple(q_rope.shape)}, c_kv "
+                         f"{tuple(c_kv.shape)} and k_rope "
+                         f"{tuple(k_rope.shape)} must be ({B}, {H}, rho), "
+                         f"({B}, S, {r}) and ({B}, S, rho) for q_lat "
+                         f"{tuple(q_lat.shape)}")
+    if q_lat.dtype != torch.float32:
+        raise ValueError(f"{op}: q_lat must be torch.float32, got "
+                         f"{q_lat.dtype}")
+    if not all(t.is_floating_point() for t in (q_rope, c_kv, k_rope)):
+        raise ValueError(f"{op}: q_rope, c_kv and k_rope must be floating, "
+                         f"got {q_rope.dtype}, {c_kv.dtype}, {k_rope.dtype}")
+    if pos.dtype != torch.int64 or pos.numel() != 1 or pos.dim() > 1:
+        raise ValueError(f"{op}: pos must be a 0-d or (1,) int64 tensor, got "
+                         f"{pos.dtype} of shape {tuple(pos.shape)}")
+    kernel = impl == "cuda" or (impl == "auto"
+                                and any(t.is_cuda for t in ts + (pos,)))
+    if kernel:
+        if not _latent_fits(c_kv, k_rope, H):
+            raise ValueError(
+                f"{op}: the kernel takes a bf16 cache at (kv_rank, rope_dim, "
+                f"heads) within {LATENT_WIDTHS} (the most heads of each), got "
+                f"{c_kv.dtype}/{k_rope.dtype} at ({r}, {rho}, {H})")
+        for t, name in ((c_kv, "c_kv"), (k_rope, "k_rope")):
+            if (t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8
+                    or t.data_ptr() % 16):
+                raise ValueError(f"{op}: {name}'s rows must be of unit "
+                                 f"stride at 16-byte aligned strides, got "
+                                 f"strides {t.stride()}")
+    impl = _resolve(impl, op, *ts, pos)
+    _charge(op, _cost.latent_attend_cost, B, H, S, r, rho,
+            c_kv.element_size())
+    if impl == "ref":
+        return _ref.latent_attend_ref(q_lat, q_rope, c_kv, k_rope, pos, scale)
+    dev = q_lat.device
+    splits = latent_attend_splits(
+        B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    q_lat = q_lat.contiguous()
+    q_rope = q_rope.to(torch.float32).contiguous()
+    out = torch.empty((B, H, r), dtype=torch.float32, device=dev)
+    o_part = (torch.empty((B, splits, H, r), dtype=torch.float32, device=dev)
+              if splits > 1 else out)
+    ml_part = torch.empty((B, splits, H, 2), dtype=torch.float32, device=dev)
+    _launch(op, op, q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
+            k_rope.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            o_part.data_ptr(), ml_part.data_ptr(), B, H, S, r, rho,
+            c_kv.stride(0), c_kv.stride(1), k_rope.stride(0),
+            k_rope.stride(1), float(scale), splits,
+            shape=(B, H, S, r, rho, splits))
+    return out
+
+
 def fused_query(queries: torch.Tensor, cum: torch.Tensor,
                 starts: torch.Tensor, items: torch.Tensor, total: int,
                 k: int, *, kprime: Optional[int] = None,
@@ -835,6 +935,9 @@ def launch_shape_class(kernel: str, sizes: Tuple[int, ...]
         return kernel, dict(zip(("q", "n", "d", "k"), sizes))
     if kernel == "planned_runs":          # a port kernel: not in the registry
         return kernel, dict(zip(("q", "b", "r"), sizes))
+    if kernel == "latent_attend":         # a port kernel: not in the registry
+        return kernel, dict(zip(("b", "h", "s", "r", "rho", "splits"),
+                                sizes))
     raise ValueError(f"launch_shape_class: unknown kernel {kernel!r}")
 
 

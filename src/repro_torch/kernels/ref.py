@@ -4,7 +4,11 @@ Each function computes what its CUDA kernel computes, in plain tensor
 ops. The CPU path of every wrapper in :mod:`repro_torch.kernels.ops`
 runs these, the tests hold them against the JAX package's oracles, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card. No
-main-path call reaches them when the tensors live on a CUDA device.
+main-path call reaches them when the tensors live on a CUDA device, save
+one that no kernel stands behind: the sequence-sharded MLA decode
+(``models/attention.py`` ``mla_decode`` over several shards) takes
+:func:`latent_scores_ref` as the plain math of its shards' scores, which
+its cross-shard combine needs whole.
 
 Packed codes are int32 tensors holding the bits of the reference's
 uint32 words (``np.asarray(u32).view(np.int32)``): torch has no popcount
@@ -21,6 +25,9 @@ import torch
 from repro_torch.core.hashing import pack_bits
 
 NEG = -3e38       # score of a candidate slot past the query's take total
+# score of a masked slot: one past the latent cache's live position here,
+# and every attention mask of models/attention.py, which takes it from here
+NEG_INF = -1e30
 
 
 @contextlib.contextmanager
@@ -223,3 +230,29 @@ def planned_runs_ref(order: torch.Tensor, bucket_start: torch.Tensor,
     starts = bucket_start[:-1][order]
     take = planned_take(bucket_rid[order], sizes_o, caps)
     return exclusive_cum(take), starts
+
+
+def latent_scores_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      c_kv: torch.Tensor, k_rope: torch.Tensor, pos,
+                      scale: float, offset: int = 0) -> torch.Tensor:
+    """MLA's masked absorbed scores (B, H, S) of the cache slots ``offset
+    ..``: ``q_lat c_kv + q_rope k_rope`` in f32, times ``scale``; slots
+    past ``pos`` (an int or a one-element tensor) score
+    :data:`NEG_INF`."""
+    f32 = torch.float32
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv.to(f32))
+         + torch.einsum("bhn,bsn->bhs", q_rope.to(f32), k_rope.to(f32)))
+    s = s * scale
+    keep = offset + torch.arange(c_kv.shape[1], device=s.device) <= pos
+    return torch.where(keep, s, NEG_INF)
+
+
+def latent_attend_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      c_kv: torch.Tensor, k_rope: torch.Tensor, pos,
+                      scale: float) -> torch.Tensor:
+    """The attention-weighted latent (B, H, r) f32 over a whole cache:
+    the softmax of :func:`latent_scores_ref` over its slots, times the
+    latent cast to f32."""
+    pattn = torch.softmax(latent_scores_ref(q_lat, q_rope, c_kv, k_rope,
+                                            pos, scale), dim=-1)
+    return torch.einsum("bhs,bsr->bhr", pattn, c_kv.to(torch.float32))

@@ -37,12 +37,14 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as _ref
 from repro_torch.models.common import (PARAM_DTYPE, apply_rope, dense_init,
                                        merge_heads, pad, rms_norm,
                                        softcap, split_heads,
                                        yarn_softmax_factor)
 
-NEG_INF = -1e30
+NEG_INF = _ref.NEG_INF          # a masked score
 # flash_attention always skips the kv chunks above the diagonal and outside
 # the local window (the reference's default, REPRO_CAUSAL_SKIP=1, which the
 # port does not read); parallel/analytic.py counts attention FLOPs with it
@@ -587,7 +589,10 @@ def mla_decode(p, x: torch.Tensor, cache: AttnCache, cache_pos,
                cfg: ModelConfig, *, seq_axis: Optional[str] = None
                ) -> Tuple[torch.Tensor, AttnCache]:
     """Absorbed-form MLA decode: never forms per-head K/V. Scores are
-    ``q_nope W_uk^T c_kv + q_rope k_rope`` in f32.
+    ``q_nope W_uk^T c_kv + q_rope k_rope`` in f32; the softmax over the
+    live slots and the weighted latent are ``ops.latent_attend``: on the
+    card its kernel, which takes a bf16 cache at the widths it is built
+    for and raises ``ValueError`` on any other.
 
     cache.k = c_kv (B, S, kv_rank); cache.v = k_rope (B, S, rope_dim). The
     new latent and rope key are written into ``cache`` in place, as
@@ -625,18 +630,20 @@ def mla_decode(p, x: torch.Tensor, cache: AttnCache, cache_pos,
         # the step at any position)
         cache.k.index_copy_(1, pos, c_new[:, None].to(cache.k.dtype))
         cache.v.index_copy_(1, pos, kr_new[:, None].to(cache.v.dtype))
-        o_lat = _mla_attend(q_lat, q_rope, cache.k, cache.v, cache_pos, 0,
-                            cfg)
+        o_lat = ops.latent_attend(q_lat, q_rope, cache.k, cache.v, pos,
+                                  mla_softmax_scale(cfg))
     else:
         sh = _seq_shards(cache, seq_axis)
         cache_pos = int(cache_pos)
         sh.write(cache_pos, c_new, kr_new)
         ql, qr = sh.local(q_lat), sh.local(q_rope)
         if sh.group.size == 1:
-            o_lat = _mla_attend(ql, qr, sh.k, sh.v, cache_pos, 0, cfg)
+            o_lat = ops.latent_attend(ql, qr, sh.k, sh.v, pos,
+                                      mla_softmax_scale(cfg))
         else:
-            s = _mla_scores(ql, qr, sh.k, sh.v, cache_pos,
-                            sh.group.rank * sh.S_loc, cfg)
+            s = _ref.latent_scores_ref(ql, qr, sh.k, sh.v, cache_pos,
+                                       mla_softmax_scale(cfg),
+                                       sh.group.rank * sh.S_loc)
             o_lat = _combine(sh.group, [s], [sh.k.to(f32)], "bhs,bsr->bhr")
         o_lat = sh.placed(o_lat, q_lat.shape)
     w_uv = split_heads(p["w_uv"], H)
@@ -644,22 +651,3 @@ def mla_decode(p, x: torch.Tensor, cache: AttnCache, cache_pos,
     out = merge_heads(o.to(x.dtype)) @ p["w_o"]
     return out, cache
 
-
-def _mla_scores(q_lat, q_rope, c_kv, k_rope, cache_pos, offset: int,
-                cfg: ModelConfig) -> torch.Tensor:
-    """MLA's masked absorbed scores (B, H, S) of the cache slots
-    ``offset ..``: ``q_lat c_kv + q_rope k_rope`` in f32, scaled."""
-    f32 = torch.float32
-    s = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv.to(f32))
-         + torch.einsum("bhn,bsn->bhs", q_rope.to(f32), k_rope.to(f32)))
-    s = s * mla_softmax_scale(cfg)
-    keep = offset + torch.arange(c_kv.shape[1], device=s.device) <= cache_pos
-    return torch.where(keep, s, NEG_INF)
-
-
-def _mla_attend(q_lat, q_rope, c_kv, k_rope, cache_pos, offset: int,
-                cfg: ModelConfig) -> torch.Tensor:
-    """The attention-weighted latent (B, H, kv_rank) over a whole cache."""
-    pattn = torch.softmax(_mla_scores(q_lat, q_rope, c_kv, k_rope,
-                                      cache_pos, offset, cfg), dim=-1)
-    return torch.einsum("bhs,bsr->bhr", pattn, c_kv.to(torch.float32))

@@ -145,6 +145,22 @@ def planned_runs_cost(q: int, b: int, r: int) -> Dict[str, float]:
     return {"flops": 0.0, "hbm_bytes": float(bytes_)}
 
 
+def latent_attend_cost(b: int, h: int, s: int, r: int, rho: int,
+                       cache_bytes: int = 2) -> Dict[str, float]:
+    """The port's own absorbed MLA decode attention (kernels/ops.py
+    latent_attend; plain jnp in the reference): the scores' and the
+    weighted sum's multiply-adds over all ``s`` slots, and the bytes of
+    the ``s`` slots of latent and rope key (``cache_bytes`` an element,
+    bf16 as cached), the f32 queries read once and ``o_lat`` written once.
+    The live length is on the device, so this is what a launch may read,
+    not what it reads at a position."""
+    flops = 2.0 * b * h * s * (2 * r + rho)
+    bytes_ = (cache_bytes * b * s * (r + rho)      # latent + rope key
+              + F32 * b * h * (2 * r + rho)        # q_lat, q_rope, o_lat
+              + 8)                                 # the position
+    return {"flops": float(flops), "hbm_bytes": float(bytes_)}
+
+
 def query_stage_costs(shape: Dict[str, Any]) -> Dict[str, Dict[str, float]]:
     """Per-stage predicted {flops, hbm_bytes} for one served batch.
 

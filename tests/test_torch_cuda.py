@@ -10,6 +10,8 @@ ids tie-aware.
 ``chip_smoke.py`` repeats the comparison at the main path's full shapes.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -188,6 +190,8 @@ def test_auto_on_cuda_launches_the_kernels(cuda_device):
     rid = torch.zeros(2, dtype=torch.int32, device=cuda_device)
     ops.planned_runs(torch.tensor([[1, 0]], device=cuda_device), cum[0], rid,
                      rid[:1] + 4)
+    ops.latent_attend(*_latent_inputs(cuda_device, 2, 16, 100, 512, 64),
+                      torch.tensor([50], device=cuda_device), 0.1)
     torch.cuda.synchronize()
     assert ops.launch_counts == {name: 1 for name in
                                  ops.KERNELS + ops.PORT_KERNELS}
@@ -689,6 +693,22 @@ def _to(tree, device, dtype=None):
     return tree.to(device=device, dtype=dtype or tree.dtype)
 
 
+@contextlib.contextmanager
+def _plain_latent_attend():
+    """A context in which every ``ops.latent_attend`` call, ``mla_decode``'s
+    too, asks for the plain version: on the card the op takes only the
+    bf16 cache at the widths its kernel is built for, and raises on any
+    other, so a test that runs MLA at ``reduced()`` widths or in f32 on the
+    card asks for the plain arithmetic itself."""
+    real = ops.latent_attend
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "latent_attend",
+                   lambda *args, impl="auto": real(*args, impl="ref"))
+        yield
+
+
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", [
     "granite_moe_1b_a400m", "llama4_scout_17b_a16e", "jamba_1_5_large_398b",
@@ -698,7 +718,10 @@ def test_model_blocks_on_the_card_equal_the_cpu(cuda_device, arch):
     the encoder-decoder) at ``reduced()`` size on the card against the same
     model on the CPU, f32 copies of one set of weights (TF32 off): prefill
     and two decode steps, hidden states within atol and rtol 1e-3 (f32
-    sums in another order, through 2-16 layers)."""
+    sums in another order, through 2-16 layers). MLA's decode attention is
+    its plain version on both devices (its kernel takes only a bf16 cache
+    at the published widths: ``test_mla_decode_on_the_card_goes_through_
+    latent_attend`` holds that path)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import encdec, lm
     cfg = get_config(arch).reduced()
@@ -711,26 +734,29 @@ def test_model_blocks_on_the_card_equal_the_cpu(cuda_device, arch):
     patches = (0.1 * torch.ones((2, cfg.num_patches, cfg.d_model))
                if cfg.num_patches else None)
     runs = []
-    for dev in ("cpu", cuda_device):
-        p = _to(params, dev, torch.float32)
-        t = toks.to(dev)
-        if cfg.is_encoder_decoder:
-            enc = encdec.encoder_forward(p["encoder"], frames.to(dev), cfg)
-            caches = encdec.init_cache(cfg, 2, 20, device=dev)
-            caches["cross_k"], caches["cross_v"] = encdec.cross_kv(
-                p["layers"], enc, cfg)
-            hs, start = [enc[:, -1]], 0
-        else:
-            h, caches = lm.prefill(p, t, cfg, None if patches is None
-                                   else patches.to(dev))
-            caches = lm.extend_cache(cfg, caches, 64)
-            hs, start = [h], 16 + (cfg.num_patches if cfg.num_patches
-                                   else 0)
-        for step in range(2):
-            h, caches = lm.decode_step(p, t[:, step], caches, start + step,
-                                       cfg, logits_mode="none")
-            hs.append(h)
-        runs.append([x.float().cpu().numpy() for x in hs])
+    with _plain_latent_attend():
+        for dev in ("cpu", cuda_device):
+            p = _to(params, dev, torch.float32)
+            t = toks.to(dev)
+            if cfg.is_encoder_decoder:
+                enc = encdec.encoder_forward(p["encoder"], frames.to(dev),
+                                             cfg)
+                caches = encdec.init_cache(cfg, 2, 20, device=dev)
+                caches["cross_k"], caches["cross_v"] = encdec.cross_kv(
+                    p["layers"], enc, cfg)
+                hs, start = [enc[:, -1]], 0
+            else:
+                h, caches = lm.prefill(p, t, cfg, None if patches is None
+                                       else patches.to(dev))
+                caches = lm.extend_cache(cfg, caches, 64)
+                hs, start = [h], 16 + (cfg.num_patches if cfg.num_patches
+                                       else 0)
+            for step in range(2):
+                h, caches = lm.decode_step(p, t[:, step], caches,
+                                           start + step, cfg,
+                                           logits_mode="none")
+                hs.append(h)
+            runs.append([x.float().cpu().numpy() for x in hs])
     for a, b in zip(*runs):
         assert np.isfinite(b).all()
         np.testing.assert_allclose(b, a, atol=1e-3, rtol=1e-3)
@@ -869,13 +895,15 @@ def test_lint_kernels_and_contracts_exit_0_on_the_card(cuda_device, capsys):
 
 @pytest.mark.cuda
 def test_deepseek_step_graph_equals_the_eager_step(cuda_device):
-    """DeepSeek-V2-Lite at a small size on the card: the fused-head
-    server, whose step is a replayed CUDA graph, gives the eager
-    ``lm.decode_step``'s hidden states and the head's answers on them step
-    by step (the same tokens fed to both), and writes the same caches. A
-    tracked step replays the same graph: every layer's span, timed on the
-    device inside it, and the routing counters. bf16 throughout: the same
-    kernels in the same order, so within one bf16 rounding (1e-2)."""
+    """DeepSeek-V2-Lite at a small size with its published MLA widths
+    (kv_rank 512, rope 64, 16 heads, which ``latent_attend``'s kernel
+    takes) on the card: the fused-head server, whose step is a replayed
+    CUDA graph, gives the eager ``lm.decode_step``'s hidden states and the
+    head's answers on them step by step (the same tokens fed to both), and
+    writes the same caches. A tracked step replays the same graph: every
+    layer's span, timed on the device inside it, and the routing counters.
+    bf16 throughout: the same kernels in the same order, so within one
+    bf16 rounding (1e-2)."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -885,8 +913,10 @@ def test_deepseek_step_graph_equals_the_eager_step(cuda_device):
     from repro_torch.obs.sinks import RingBufferSink
 
     cfg = get_config("deepseek_v2_lite").reduced()
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, num_experts=8, top_k=3))
+    cfg = dataclasses.replace(
+        cfg, n_heads=16,
+        mla=dataclasses.replace(cfg.mla, kv_rank=512, rope_dim=64),
+        moe=dataclasses.replace(cfg.moe, num_experts=8, top_k=3))
     assert lm.decode_capturable(cfg)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     params = lm.init_params(gen, cfg, device=cuda_device)
@@ -921,3 +951,147 @@ def test_deepseek_step_graph_equals_the_eager_step(cuda_device):
     assert tr.counters["repro.model.moe.dropped_tokens"] == 0
     assert tr.counters["repro.model.moe.routed_tokens"] == (
         4 * 3 * (cfg.n_layers - cfg.first_dense))
+
+
+# -- latent_attend: MLA's absorbed decode attention ---------------------------
+#
+# The kernel's f32 operands (q_lat, q_rope and P) enter its bf16 products as
+# a hi + lo pair, ~16 bits of mantissa each, and it sums in another order
+# than the plain version: per (sequence, head) row, ||kernel - plain|| /
+# ||plain|| stays within LATENT_RTOL (read 3e-6 at a few hundred slots,
+# 1.2e-5 at the cell's 9,216). Rounding q_lat and P once to bf16 (8 bits)
+# moves a row by ~2e-3: that control must read at least 10x the tolerance,
+# so the tolerance would catch a kernel that rounds once.
+LATENT_RTOL = 5e-5
+LATENT_T = 64                  # slots a tile of latent_attn.cu
+# (B, H, S, kv_rank, rope_dim): the decode cell's, MiniCPM3's widths
+LATENT_SHAPES = {"deepseek": (64, 16, 9216, 512, 64),
+                 "minicpm3": (8, 40, 9216, 256, 32)}
+LATENT_POSITIONS = (0, 1, LATENT_T - 1, LATENT_T, 8191, 9215,
+                    100, 4500 + 37)                # the last two: ragged tails
+
+
+def _latent_inputs(dev, B, H, S, r, rho, q_scale=1.0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (q_scale * torch.randn((B, H, r), generator=g, device=dev),
+            torch.randn((B, H, rho), generator=g,
+                        device=dev).to(torch.bfloat16),
+            torch.randn((B, S, r), generator=g, device=dev).to(torch.bfloat16),
+            torch.randn((B, S, rho), generator=g,
+                        device=dev).to(torch.bfloat16))
+
+
+def _row_err(got, want):
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+
+
+def _rounded_once(q_lat, q_rope, c_kv, k_rope, pos, scale):
+    """The control: q_lat and P each rounded once to bf16."""
+    from repro_torch.kernels import ref
+    s = ref.latent_scores_ref(q_lat.to(torch.bfloat16).float(), q_rope, c_kv,
+                              k_rope, pos, scale)
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    return torch.einsum("bhs,bsr->bhr", p, c_kv.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", sorted(LATENT_SHAPES))
+@pytest.mark.parametrize("q_scale", [0.05, 1.0])    # spread, peaked softmax
+def test_latent_attend_kernel_equals_plain(cuda_device, widths, q_scale):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _latent_inputs(cuda_device, *LATENT_SHAPES[widths],
+                          q_scale=q_scale)
+    for at in LATENT_POSITIONS:
+        pos = torch.tensor([at], device=cuda_device)
+        got = ops.latent_attend(*args, pos, 0.1, impl="cuda")
+        want = ops.latent_attend(*args, pos, 0.1, impl="ref")
+        assert bool(torch.isfinite(got).all())
+        err = _row_err(got, want)
+        assert err <= LATENT_RTOL, (at, err)
+        if at > 0:      # one live slot: every rounding gives that slot
+            ctl = _row_err(_rounded_once(*args, pos, 0.1), want)
+            assert ctl >= 10 * LATENT_RTOL, (at, ctl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", sorted(LATENT_SHAPES))
+def test_latent_attend_reads_no_slot_past_the_position(cuda_device, widths):
+    B, H, _, r, rho = LATENT_SHAPES[widths]
+    q_lat, q_rope, c_kv, k_rope = _latent_inputs(cuda_device, B, H, 1000, r,
+                                                 rho)
+    for at in (0, 500, 999 - 64):
+        pos = torch.tensor(at, device=cuda_device)          # 0-d
+        want = ops.latent_attend(q_lat, q_rope, c_kv, k_rope, pos, 0.1)
+        c, k = c_kv.clone(), k_rope.clone()
+        c[:, at + 1:], k[:, at + 1:] = float("nan"), float("nan")
+        got = ops.latent_attend(q_lat, q_rope, c, k, pos, 0.1)
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_latent_attend_graph_replays_at_other_positions(cuda_device):
+    """Captured at one position, replayed at two others: the position is
+    read on the device, so each replay equals the eager call there."""
+    args = _latent_inputs(cuda_device, 64, 16, 2048, 512, 64)
+    pos = torch.tensor([1000], device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.latent_attend(*args, pos, 0.1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.latent_attend(*args, pos, 0.1)
+    for at in (2047, 63):
+        pos.fill_(at)
+        graph.replay()
+        assert torch.equal(out, ops.latent_attend(*args, pos, 0.1))
+
+
+@pytest.mark.cuda
+def test_latent_attend_rejects_a_cache_it_is_not_built_for(cuda_device):
+    q_lat, q_rope, c_kv, k_rope = _latent_inputs(cuda_device, 2, 16, 100,
+                                                 128, 64)
+    pos = torch.tensor([5], device=cuda_device)
+    with pytest.raises(ValueError, match="kernel takes"):
+        ops.latent_attend(q_lat, q_rope, c_kv, k_rope, pos, 0.1)
+    with pytest.raises(ValueError, match="kernel takes"):
+        ops.latent_attend(*_latent_inputs(cuda_device, 2, 17, 100, 512, 64),
+                          pos, 0.1)
+    with pytest.raises(ValueError):              # the position on the host
+        ops.latent_attend(*_latent_inputs(cuda_device, 2, 16, 100, 512, 64),
+                          torch.tensor([5]), 0.1)
+
+
+@pytest.mark.cuda
+def test_mla_decode_on_the_card_goes_through_latent_attend(cuda_device):
+    """DeepSeek-V2-Lite at a small size with its published MLA widths
+    (kv_rank 512, rope 64, 16 heads), bf16 as served: every layer's decode
+    launches the kernel once, and the step's hidden state is the plain
+    version's within bf16 rounding through its layers (1e-2)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    cfg = get_config("deepseek_v2_lite").reduced()
+    cfg = dataclasses.replace(cfg, n_heads=16, mla=dataclasses.replace(
+        cfg.mla, kv_rank=512, rope_dim=64))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = lm.init_params(gen, cfg, device=cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (4, 20), generator=gen,
+                           device=cuda_device)
+    _, caches = lm.prefill(params, tokens[:, :16], cfg)
+    caches = lm.extend_cache(cfg, caches, 300)
+    plain = tuple(type(c)(*(t.clone() for t in c)) for c in caches)
+    ops.reset_launch_counts()
+    hidden, _ = lm.decode_step(params, tokens[:, 16], caches,
+                               torch.tensor(16, device=cuda_device), cfg,
+                               logits_mode="none")
+    torch.cuda.synchronize()
+    assert ops.launch_counts["latent_attend"] == cfg.n_layers
+    with _plain_latent_attend():
+        want, _ = lm.decode_step(params, tokens[:, 16], plain, 16, cfg,
+                                 logits_mode="none")
+    assert ops.launch_counts["latent_attend"] == cfg.n_layers
+    torch.testing.assert_close(hidden, want, rtol=1e-2, atol=1e-2)

@@ -458,6 +458,20 @@ def test_ptxas_registers_smem_and_unclaimed_functions_are_k1_findings():
         fn="hash_encode_kernel", regs=98, smem=0)}) == []
 
 
+def test_ptxas_claims_of_the_port_kernels_own_annotations():
+    """``latent_attend``'s functions are claimed by its own annotation
+    (a port kernel, no op of the registry), held to its threads."""
+    log = (PTXAS.format(fn="latent_attn_kernel", regs=236, smem=0)
+           + PTXAS.format(fn="latent_merge_kernel", regs=32, smem=0))
+    assert kc.check_ptxas({}, {"latent_attn": log}) == []
+    found = kc.check_ptxas({}, {"latent_attn": PTXAS.format(
+        fn="latent_attn_kernel", regs=300, smem=16)})
+    msgs = sorted(f.message for f in found)
+    assert len(found) == 2 and {f.rule for f in found} == {"K1"}
+    assert "300 registers x 256 threads" in msgs[1]
+    assert "16 bytes of static" in msgs[0]
+
+
 @pytest.mark.cuda
 def test_kernelcheck_is_clean_on_the_card():
     if not torch.cuda.is_available():

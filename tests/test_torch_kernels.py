@@ -494,6 +494,12 @@ def test_auto_on_cpu_runs_plain_versions_and_launches_nothing():
     pc, ps = ops.planned_runs(*plan)
     rc, rs = ref.planned_runs_ref(*plan)
     assert torch.equal(pc, rc) and torch.equal(ps, rs)
+    # q_lat (2, 3, 6), q_rope (2, 3, 2), a bf16 cache of 20 slots, pos 11
+    lat = (x[None, :3].repeat(2, 1, 1), x[None, :3, :2].repeat(2, 1, 1),
+           x[None].repeat(2, 1, 1).to(torch.bfloat16),
+           x[None, :, :2].repeat(2, 1, 1).to(torch.bfloat16),
+           torch.tensor([11]), 0.5)
+    assert torch.equal(ops.latent_attend(*lat), ref.latent_attend_ref(*lat))
     assert ops.launch_counts == {name: 0 for name in
                                  ops.KERNELS + ops.PORT_KERNELS}
 

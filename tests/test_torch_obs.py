@@ -718,6 +718,36 @@ def test_dispatch_and_cost_counts_equal_reference(calibrated, arm):
                 budgeted * c["hbm_bytes"]}
 
 
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite", "minicpm3_4b"])
+def test_latent_attend_dispatch_and_cost_counts(arch):
+    """An MLA decode step calls the port's own ``latent_attend`` (plain jnp
+    in the reference, which counts nothing there) once a layer: its
+    dispatch count and its cost totals, and nothing else."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.obs.cost import latent_attend_cost
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = lm.init_params(gen, cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 9), generator=gen)
+    _, caches = lm.prefill(params, tokens[:, :8], cfg)
+    caches = lm.extend_cache(cfg, caches, 12)
+    tr = Tracker()
+    ops.set_dispatch_tracker(tr)
+    try:
+        lm.decode_step(params, tokens[:, 8], caches, 8, cfg,
+                       logits_mode="none")
+    finally:
+        ops.set_dispatch_tracker(None)
+    m, n = cfg.mla, cfg.n_layers
+    c = latent_attend_cost(2, cfg.n_heads, 12, m.kv_rank, m.rope_dim,
+                           caches[0].k.element_size())
+    assert tr.counters == {
+        "repro.kernels.dispatch.latent_attend.ref": n,
+        "repro.kernels.cost.latent_attend.flops": n * c["flops"],
+        "repro.kernels.cost.latent_attend.hbm_bytes": n * c["hbm_bytes"]}
+
+
 def test_adaptive_query_telemetry(calibrated):
     _, pidx, queries = calibrated
     tr = Tracker()
